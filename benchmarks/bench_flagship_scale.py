@@ -1,19 +1,20 @@
-"""Flagship-scale benchmarks on the real chip (VERDICT r2 item #1).
+"""Flagship-scale benchmarks on the GPU.
 
 The reference deploys 0.19B-1.5B LMs (/root/reference/Inference.md:19-44,
-README.md:140 trains from rwkv7-1.5B-world); every round-2 number was at
-103M (768x12). This measures the real deployed sizes on the actual chip:
+README.md:140 trains from rwkv7-1.5B-world). This measures the deployed
+sizes on the card:
 
   * decode tok/s at 0.4B-class (1024x24) and 1.4B-class (2048x24)
   * train step KT/s + MFU at 0.4B-class with the production fp32-Adam
     state, and at 1.4B-class (--only train14) with the low-memory
-    factored-second-moment optimizer (fp32 Adam state for 1.4B is
-    5.7+11.4 GB and exceeds one v5e-16GB — the reference needed ZeRO-3
-    CPU-offload for the same LM; multi-chip fsdp is covered by the
-    virtual-mesh dryrun)
+    factored-second-moment optimizer (the reference needed ZeRO-3
+    CPU-offload for the same LM; multi-card fsdp is covered by
+    chip_smoke.py --four)
+
+MFU divides by the card's dense bf16 peak (chip_checks.PEAK_BF16_FLOPS,
+keyed by device kind). Refuses to run without a GPU.
 
 Usage: python benchmarks/bench_flagship_scale.py [--only decode04|decode14|train04]
-Results go to PERF.md.
 """
 from __future__ import annotations
 
@@ -29,11 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rwkvtts_tpu.utils import jit_cache
-
-jit_cache.enable()
-
-PEAK_FLOPS = 197e12  # v5e bf16
+from rwkvtts_tpu.utils import chip_checks, jit_cache
 
 
 def n_params(params) -> int:
@@ -41,14 +38,12 @@ def n_params(params) -> int:
 
 
 def bench_decode(hidden, layers, batch=64, t_prompt=128, t_new=256, iters=3,
-                 int8=False, int4=False, packed_wkv=False, state_bf16=False,
-                 proj_fuse=True):
+                 int8=False, int4=False, state_bf16=False, proj_fuse=True):
     from rwkvtts_tpu.infer.generate import spark_generate
     from rwkvtts_tpu.models import rwkv7, spark
 
     cfg = spark.default_config(
-        hidden_size=hidden, num_layers=layers, decode_wkv_packed=packed_wkv,
-        decode_state_bf16=state_bf16,
+        hidden_size=hidden, num_layers=layers, decode_state_bf16=state_bf16,
     )
     params = spark.init_params(jax.random.PRNGKey(0), cfg)
     params = jax.tree.map(
@@ -76,16 +71,16 @@ def bench_decode(hidden, layers, batch=64, t_prompt=128, t_new=256, iters=3,
         return toks
 
     t0 = time.perf_counter()
-    np.asarray(run(jax.random.PRNGKey(2)))
+    jax.block_until_ready(run(jax.random.PRNGKey(2)))
     print(f"  compile+first: {time.perf_counter()-t0:.1f}s", flush=True)
     t0 = time.perf_counter()
     for i in range(iters):
-        np.asarray(run(jax.random.PRNGKey(3 + i)))
+        jax.block_until_ready(run(jax.random.PRNGKey(3 + i)))
     dt = (time.perf_counter() - t0) / iters
     tps = batch * t_new / dt
     out = {
         "bench": f"decode_{hidden}x{layers}" + ("_int8" if int8 else "")
-        + ("_int4" if int4 else "") + ("_packed" if packed_wkv else "")
+        + ("_int4" if int4 else "")
         + ("_sbf16" if state_bf16 else "")
         + ("" if proj_fuse else "_nofuse"),
         "params": np_,
@@ -104,17 +99,10 @@ def bench_train(hidden, layers, batch=8, seqlen=2048, iters=5,
     from rwkvtts_tpu.parallel import train_step as ts
     from rwkvtts_tpu.train import optimizer as opt_lib
 
-    # the production single-chip train defaults (train/cli.py, PERF.md):
-    # fused-prep Pallas kernel, 'wkv' remat policy, unrolled layers, bf16
-    # kernel matmuls — so this bench measures what training actually runs.
-    # wkv_spans>1 = the two-level hierarchical XLA path (forces the
-    # composed/non-pallas branch; the spans question is whether the
-    # shortened serial chunk scan can rival the fused kernel pair)
+    # the train/cli.py defaults; wkv_spans>1 = the two-level hierarchical
+    # chunk scan (shorter serial path)
     cfg = spark.default_config(
-        hidden_size=hidden, num_layers=layers,
-        wkv_fuse_prep=True, remat_policy="wkv", layer_unroll=True,
-        wkv_mm="bf16", wkv_group=16, wkv_group_bwd=16,
-        wkv_spans=wkv_spans,
+        hidden_size=hidden, num_layers=layers, wkv_spans=wkv_spans,
     )
     params = spark.init_params(jax.random.PRNGKey(0), cfg)
     np_ = n_params(params)
@@ -137,18 +125,19 @@ def bench_train(hidden, layers, batch=8, seqlen=2048, iters=5,
     }
     rng = jax.random.PRNGKey(2)
 
+    peak = chip_checks.peak_bf16_flops(jax.devices()[0].device_kind)
     t0 = time.perf_counter()
     state, metrics = step(state, batch_d, rng)
-    loss0 = float(np.asarray(metrics["loss"]))
+    loss0 = float(metrics["loss"])
     print(f"  compile+first: {time.perf_counter()-t0:.1f}s loss={loss0:.4f}",
           flush=True)
     t0 = time.perf_counter()
     for _ in range(iters):
         state, metrics = step(state, batch_d, rng)
-    np.asarray(metrics["loss"])
+    jax.block_until_ready(metrics["loss"])
     dt = (time.perf_counter() - t0) / iters
     kts = B * T / dt / 1e3
-    mfu = 6 * np_ * B * T / dt / PEAK_FLOPS
+    mfu = 6 * np_ * B * T / dt / peak
     out = {
         "bench": f"train_{hidden}x{layers}"
         + (f"_{low_memory}" if low_memory else "")
@@ -170,7 +159,6 @@ def main():
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--int8", action="store_true")
     ap.add_argument("--int4", action="store_true")
-    ap.add_argument("--packed-wkv", action="store_true")
     ap.add_argument("--state-bf16", action="store_true",
                     help="bf16 decode-state carry (cfg.decode_state_bf16)")
     ap.add_argument("--no-proj-fuse", action="store_true",
@@ -180,15 +168,17 @@ def main():
                          "7-matmul path may win (bf16 only)")
     ap.add_argument("--wkv-spans", type=int, default=1,
                     help="two-level hierarchical WKV chunking on the train "
-                         "benches (XLA path; 1 = production pallas)")
+                         "benches (1 = the plain chunked scan)")
     args = ap.parse_args()
+    chip_checks.require_gpu()
+    jit_cache.enable()
     results = []
     if args.only == "decode019":
         # the reference's smallest shipped LM class (0.19B, Inference.md)
         print("== decode 0.19B (768x24) ==", flush=True)
         results.append(
             bench_decode(768, 24, batch=args.batch or 64, int8=args.int8,
-                         int4=args.int4, packed_wkv=args.packed_wkv,
+                         int4=args.int4,
                          state_bf16=args.state_bf16,
                          proj_fuse=not args.no_proj_fuse)
         )
@@ -196,7 +186,7 @@ def main():
         print("== decode 0.4B (1024x24) ==", flush=True)
         results.append(
             bench_decode(1024, 24, batch=args.batch or 64, int8=args.int8,
-                         int4=args.int4, packed_wkv=args.packed_wkv,
+                         int4=args.int4,
                          state_bf16=args.state_bf16,
                          proj_fuse=not args.no_proj_fuse)
         )
@@ -204,7 +194,7 @@ def main():
         print("== decode 1.4B (2048x24) ==", flush=True)
         results.append(
             bench_decode(2048, 24, batch=args.batch or 64, int8=args.int8,
-                         int4=args.int4, packed_wkv=args.packed_wkv,
+                         int4=args.int4,
                          state_bf16=args.state_bf16,
                          proj_fuse=not args.no_proj_fuse)
         )
@@ -213,9 +203,8 @@ def main():
         results.append(bench_train(1024, 24, batch=args.batch or 8,
                                    wkv_spans=args.wkv_spans))
     if args.only == "train14":
-        # 1.4B fp32 Adam state (5.7+11.4 GB) exceeds one 16 GB chip — the
-        # reference needed ZeRO-3 CPU-offload for the same model
-        # (train_..._properties.py:377-387); our single-chip path is the
+        # the reference needed ZeRO-3 CPU-offload for the same model
+        # (train_..._properties.py:377-387); the one-card path here is the
         # factored-second-moment optimizer (train/optimizer.py low_memory)
         print("== train 1.4B (2048x24, adafactor state) ==", flush=True)
         results.append(

@@ -1,17 +1,16 @@
 """B=1 greedy decode: plain vs self-speculative (int8/int4 draft + bf16
 verify), at deployed LM sizes.
 
-B=1 decode is weight-bandwidth-bound (PERF.md: 1.5B bf16 ~4.5 ms/step),
-which is exactly what speculative decode amortizes — the verify pass reads
+B=1 decode is weight-bandwidth-bound, which is exactly what speculative
+decode amortizes — the verify pass reads
 the bf16 weights once per K tokens. Reports:
 
   (a) component times: plain bf16 step, quantized draft step, verify ms
       per K-window — hardware truths independent of acceptance;
   (b) end-to-end spec tok/s at the acceptance rate measured on THESE
       weights (random init unless --ckpt);
-  (c) projected spec tok/s at acceptance 1.0 — the measured trained-model
-      int8 top-1 agreement (PERF.md: 1.0000 over 256 steps), i.e. what a
-      deployed checkpoint gets.
+  (c) projected spec tok/s at acceptance 1.0 — what a deployed checkpoint
+      whose int8 and bf16 top-1 tokens agree gets.
 
 Usage: python benchmarks/bench_spec_decode.py [--hidden 2048 --layers 24]
   [--k 8] [--int4] [--steps 256] [--cpu]
@@ -99,8 +98,8 @@ def main():
     ms_plain = timed_loop(packed_fp, args.steps, "plain bf16 greedy")
     ms_draft = timed_loop(packed_q, args.steps, f"{qname} draft loop")
     # free the loop-bench copies BEFORE the e2e run: at 1.4B K=16 the
-    # fused bf16 + quantized view trees kept ~4 GB live and the e2e spec
-    # program OOMed HBM mid-run (chipq_s8.log 04:27, ADVICE round 3)
+    # fused bf16 + quantized view trees keep ~4 GB live beside the e2e
+    # spec program
     del packed_fp, packed_q
 
     # verify window cost: one collect_states chunk pass over K tokens

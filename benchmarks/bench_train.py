@@ -1,7 +1,7 @@
-"""Training-step throughput benchmark (flagship Spark, real TPU).
+"""Training-step throughput benchmark (flagship Spark, on the GPU).
 
 Usage: python benchmarks/bench_train.py [--batch 8] [--seqlen 2048]
-Prints step time + KT/s/chip. PERF.md tracks the history.
+Prints step time + KT/s per card.
 """
 from __future__ import annotations
 

@@ -1,12 +1,12 @@
-"""rwkvtts_tpu — a TPU-native RWKV-7 speech framework.
+"""rwkvtts_tpu — an RWKV-7 speech framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of yynil/RWKVTTS:
+A from-scratch JAX/XLA rebuild of the capabilities of yynil/RWKVTTS:
 RWKV-7 speech language models (SparkTTS single-stream, CosyVoice, XY/Higgs
 multi-channel), ASR, audio codecs, training (GSPMD data/tensor parallel over a
-TPU mesh), and batched autoregressive serving.
+device mesh), and batched autoregressive serving.
 
 Layering (bottom → top):
-  ops/       WKV7 kernels (scan reference, chunked-matmul, Pallas), norms,
+  ops/       WKV7 (scan reference, chunked-matmul, decode step), norms,
              sampling, losses
   models/    RWKV-7 core + speech LM heads (functional: config → params → apply)
   data/      prompt-layout collators (token-domain, segment-id packing)

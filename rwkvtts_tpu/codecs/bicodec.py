@@ -1,4 +1,4 @@
-"""BiCodec (SparkTTS audio codec), TPU-native JAX implementation.
+"""BiCodec (SparkTTS audio codec), JAX implementation.
 
 Token <-> waveform codec for the Spark path:
   * semantic tokens: FactorizedVQ over wav2vec2 features, 8192 codes @ 50 Hz

@@ -1,6 +1,6 @@
 """Upsample conformer/transformer encoder for the CosyVoice flow stack.
 
-TPU-native functional port of the reference's wenet-style encoder
+Functional JAX port of the reference's wenet-style encoder
 (behavioral parity sources, /root/reference):
   * UpsampleConformerEncoder: third_party/cosyvoice/transformer/upsample_encoder.py:105-331
   * ConformerEncoderLayer:    third_party/cosyvoice/transformer/encoder_layer.py:109-240

@@ -4,9 +4,9 @@ Pure JAX, jittable, static shapes. These replace the reference's
 torchaudio.MelSpectrogram (bicodec.py:init_mel_transformer), torch.stft
 inside HiFT, and kaldi fbank (cosyvoice frontend).
 
-STFT is expressed as a matmul against precomputed DFT bases — on TPU this
-rides the MXU and fuses with surrounding ops, which beats an FFT lowering
-at typical codec frame sizes (n_fft <= 2048).
+STFT is expressed as a matmul against precomputed DFT bases: a dense
+matmul that XLA fuses with surrounding ops, at typical codec frame sizes
+(n_fft <= 2048).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Flow-matching mel generator for the CosyVoice path + first-party SFM.
 
-TPU-native functional port. Behavioral parity sources (/root/reference):
+Functional JAX port. Behavioral parity sources (/root/reference):
   * flow wrapper (zero-shot inference): third_party/cosyvoice/flow/flow.py:155-241
     (CausalMaskedDiffWithXvec: xvec-norm+affine, prompt/token concat, encoder,
      conds = prompt mel zero-padded, 10-step euler with CFG)

@@ -1,4 +1,4 @@
-"""HiFT vocoder (NSF source-filter + ISTFT head), TPU-native.
+"""HiFT vocoder (NSF source-filter + ISTFT head), in JAX.
 
 Behavioral parity source (/root/reference):
 third_party/cosyvoice/hifigan/generator.py:43-420 — ConvRNNF0Predictor

@@ -1,6 +1,6 @@
-"""Functional NN building blocks for the audio-codec stacks, TPU-native.
+"""Functional NN building blocks for the audio-codec stacks.
 
-Everything is channels-last (B, T, C) — the layout XLA tiles best on TPU —
+Everything is channels-last (B, T, C)
 and pure-functional: params are plain nested dicts, apply functions are
 jittable with static config.
 
@@ -135,7 +135,7 @@ def conv_transpose1d(
     out = (T-1)*stride - 2*padding + dilation*(K-1) + output_padding + 1.
 
     Implemented as a fractionally-strided conv (lhs_dilation) — XLA lowers
-    this to an MXU-friendly gather+matmul, no scatter. The kernel is stored
+    this to a gather+matmul, no scatter. The kernel is stored
     pre-flipped in forward layout (K, Cin/g, Cout); torch_import handles the
     flip/transpose from torch's (Cin, Cout/g, K).
     """

@@ -2,7 +2,7 @@
 
 The reference runs this as an ONNX black box (third_party/cosyvoice/cli/
 frontend.py:95-105: whisper 128-mel -> encoder -> 6561-way tokens @ 25 Hz).
-This is a native TPU implementation of the published S3TokenizerV2
+This is a native JAX implementation of the published S3TokenizerV2
 architecture (FunAudioLLM S3Tokenizer, "speech_tokenizer_v2_25hz"):
 
   128-bin whisper log-mel (16 kHz, n_fft 400, hop 160, 100 Hz)

@@ -1,5 +1,5 @@
 """Spark-path audio tokenizer pipeline: wav -> (global, semantic) tokens and
-tokens -> wav, on TPU.
+tokens -> wav, in JAX.
 
 The jax analogue of the reference BiCodecTokenizer
 (third_party/sparktts/models/audio_tokenizer.py:28-160): BiCodec +

@@ -1,4 +1,4 @@
-"""XY_Tokenizer (dual semantic+acoustic RVQ codec, nq=8 @ 12.5 Hz), TPU-native.
+"""XY_Tokenizer (dual semantic+acoustic RVQ codec, nq=8 @ 12.5 Hz), in JAX.
 
 Behavioral parity sources (/root/reference):
   * model assembly + tokenize/detokenize:

@@ -7,7 +7,7 @@ Reference parity (C18, /root/reference):
   * Higgs extraction: utils/extract_higgs_tokens.py — same row format
   * multi-process, one worker per device/file (run_multiple_process.sh,
     mp.Queue) — here a process pool over shards; each worker owns its own
-    jitted codec (TPU work stays batched inside the worker).
+    jitted codec and, on a GPU host, its own card.
 
 Extractors take an iterator of samples ({audio (float32 16k), text, ...})
 — from data.webdataset, a directory of wavs, or jsonl rows with paths —
@@ -181,6 +181,48 @@ def extract_higgs_tokens(
     return n
 
 
+def visible_gpus() -> List[str]:
+    """Ids of the GPUs that worker processes may use, found without
+    starting a JAX backend in this process (a backend here would take most
+    of a card's memory). Empty when JAX_PLATFORMS rules out CUDA or no
+    NVIDIA driver answers."""
+    platforms = os.environ.get("JAX_PLATFORMS", "")
+    if platforms and not any(p in platforms for p in ("cuda", "gpu")):
+        return []
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [d.strip() for d in env.split(",") if d.strip()]
+    import shutil
+    import subprocess
+
+    if shutil.which("nvidia-smi") is None:
+        return []
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=index", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True,
+        ).stdout
+    except (OSError, subprocess.SubprocessError):
+        return []
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def assign_workers(num_workers: int, gpus: Sequence[str]) -> List[Optional[str]]:
+    """Card for each worker: one card each, and never more workers than
+    cards on a GPU host (two JAX processes on one card run out of memory).
+    Without GPUs every worker gets None (CPU) and the count stands."""
+    if not gpus:
+        return [None] * max(1, num_workers)
+    return list(gpus[: max(1, min(num_workers, len(gpus)))])
+
+
+def _pin_worker_card(queue) -> None:
+    """Pool initializer: take one card id before JAX starts in the worker."""
+    card = queue.get()
+    if card is not None:
+        os.environ["CUDA_VISIBLE_DEVICES"] = card
+
+
 def run_sharded(
     shard_paths: Sequence[str],
     worker_fn: Callable[[str, str], int],
@@ -189,16 +231,24 @@ def run_sharded(
 ) -> int:
     """One-worker-per-shard multiprocess driver (run_multiple_process.sh
     equivalent). worker_fn(shard_path, out_path) -> row count; workers are
-    separate processes so each owns an independent runtime."""
+    separate processes so each owns an independent runtime. On a GPU host
+    each worker is pinned to its own card (assign_workers)."""
     os.makedirs(out_dir, exist_ok=True)
     jobs = [
         (p, os.path.join(out_dir, os.path.basename(p) + ".jsonl"))
         for p in shard_paths
     ]
-    if num_workers <= 1:
+    cards = assign_workers(num_workers, visible_gpus())
+    if len(cards) <= 1:
+        # in-process: this process's JAX picks its own (first) device
         return sum(worker_fn(p, o) for p, o in jobs)
     import multiprocessing as mp
 
-    with mp.get_context("spawn").Pool(num_workers) as pool:
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    for card in cards:
+        queue.put(card)
+    with ctx.Pool(len(cards), initializer=_pin_worker_card,
+                  initargs=(queue,)) as pool:
         counts = pool.starmap(worker_fn, jobs)
     return sum(counts)

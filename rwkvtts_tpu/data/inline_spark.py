@@ -2,7 +2,7 @@
 
 Reference parity: train_spark_rwkv7speech_multiple_dataset.py (T4) —
 training directly from webdataset tars, running BiCodec tokenization
-inline per batch instead of consuming pre-extracted JSONL. On TPU the
+inline per batch instead of consuming pre-extracted JSONL. Here the
 codec runs as its own jitted program per batch; rank-local sharding comes
 from the tar split (data/webdataset.stream_tars).
 """

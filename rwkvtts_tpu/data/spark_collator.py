@@ -8,7 +8,7 @@ Layout contract (reference utils/multiple_jsonl.py):
   global-only  predict only the global tokens                      (:313-400)
   packed       all samples of a batch in one row + segment resets  (:76-136)
 
-TPU-first difference: the reference concatenates *embeddings* per sample on
+Difference: the reference concatenates *embeddings* per sample on
 the GPU; here everything is host-side numpy in the token domain —
 (tokens, modality) pairs — and the jitted model does the table lookups
 (models/spark.py embed_layout). Static output width (pad_to) keeps XLA
@@ -188,7 +188,7 @@ def collate_with_properties(
             from rwkvtts_tpu.data.text_frontend import mark_phonemes
 
             # strict by default: the ipa-ft trainer must never train on
-            # letter-map fallback junk (VERDICT r2 weak #6) — demos/tests
+            # letter-map fallback junk — demos/tests
             # opt out with mark_phonemes_strict=False
             text = mark_phonemes(text, rng=rng, strict=mark_phonemes_strict)
         text_ids = tokenizer.encode(text)

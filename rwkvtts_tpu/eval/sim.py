@@ -29,8 +29,8 @@ class SIMResult:
     # cohort-mean-centered scores: raw cosines between x-vector embeddings
     # saturate near 1.0 for ANY two speech clips (a shared dominant
     # embedding direction — measured 0.997 same-speaker vs 0.976
-    # different-speaker on random-init CAM++, i.e. no discrimination;
-    # round-2 VERDICT weak #3). Subtracting the eval-set mean embedding
+    # different-speaker on random-init CAM++, i.e. no discrimination).
+    # Subtracting the eval-set mean embedding
     # removes the common component: the same probe separates to ~0.8 vs
     # ~-0.6. `mean` stays the raw-protocol number; `centered_mean` is the
     # discriminative one.

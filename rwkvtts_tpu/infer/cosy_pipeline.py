@@ -60,43 +60,23 @@ class CosyPipeline:
         quantize_int8: bool = False,
         quantize_int4: bool = False,
         fuse_projections: bool = True,
-        decode_megakernel: bool = False,
-        mega_tile_n: int = 1024,
         sample_rank_bf16: bool = False,
     ):
         from rwkvtts_tpu.models import rwkv7
 
         self.lm_cfg = lm_cfg
-        # opt-in int8/int4 LM decode weights — what clears RTF<=0.1 at the
-        # deployed 1.5B pairing (PERF.md round 3; quality bound: zero
-        # greedy decision flips measured for int8; int4 probe via
-        # scripts/measure_int8_quality.py --int4). fuse_projections=False
+        # opt-in int8/int4 LM decode weights (quality probe:
+        # scripts/measure_int8_quality.py [--int4]). fuse_projections=False
         # drops the doubled fused projection copies — the B=1
         # weight-bandwidth lever (pack_decode_params docstring).
         # bf16 candidate ranking in the sampler (ops/sampling rank_bf16):
         # drops the full-vocab fp32 convert/divide/TopK from each decode
         # step; probabilities on the k survivors stay fp32
         self.lm_rank_bf16 = sample_rank_bf16
-        self.lm_mega = self.lm_mega_spec = None
-        if decode_megakernel:
-            # whole-step megakernel B=1 decode (ops/decode_mega.py): the
-            # int8 weight stream replaces the XLA decode copies entirely;
-            # prefill keeps the bf16 originals. Composes with streaming
-            # (bench_streaming_latency --mega).
-            from rwkvtts_tpu.ops import decode_mega as dm
-
-            mega = dm.pack_mega(lm_params, lm_cfg.backbone, mega_tile_n)
-            self.lm_mega_spec = mega.pop("spec")
-            self.lm_mega = mega
-            self.lm_params = rwkv7.pack_decode_params(
-                lm_params, lm_cfg.backbone, fuse_projections=False,
-            )
-        else:
-            self.lm_params = rwkv7.pack_decode_params(
-                lm_params, lm_cfg.backbone, quantize_int8=quantize_int8,
-                quantize_int4=quantize_int4,
-                fuse_projections=fuse_projections,
-            )
+        self.lm_params = rwkv7.pack_decode_params(
+            lm_params, lm_cfg.backbone, quantize_int8=quantize_int8,
+            quantize_int4=quantize_int4, fuse_projections=fuse_projections,
+        )
         self.tok = text_tokenizer
         self.flow_cfg = flow_cfg
         self.flow_params = flow_params

@@ -4,8 +4,8 @@ The reference decodes through HF `generate` (host-side Python loop; e.g.
 test_respark/simple_generate.py:46-56) or hand loops (cosy_llm.py:238-261).
 Here the whole decode — embedding, all layers, sampling, EOS logic — is one
 compiled program per step batch, driven by `lax.scan` with a donated state
-pytree: no host round-trips, state in HBM, fixed shapes (SURVEY.md §7 hard
-part #3).
+pytree: no host round-trips, state in device memory, fixed shapes
+(SURVEY.md §7 hard part #3).
 """
 from __future__ import annotations
 
@@ -85,88 +85,8 @@ def spark_generate(
 
     keys = jax.random.split(key, max_new_tokens)
     init = (h_last, state, jnp.zeros((B,), bool), jnp.zeros((B,), jnp.int32))
-    # NOTE: unroll=2 on this scan was measured SLOWER (13.7k vs 14.1k tok/s)
-    # — the win lives in unrolling the inner layer scan, not the AR loop.
     (_, _, done, _), toks = jax.lax.scan(step, init, keys)
     toks = jnp.moveaxis(toks, 0, 1)  # (B, max_new)
-    lengths = jnp.argmax(toks == eos_id, axis=-1)
-    lengths = jnp.where(jnp.any(toks == eos_id, axis=-1), lengths, max_new_tokens)
-    return toks, lengths
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "cfg", "mega_spec", "max_new_tokens", "top_k", "top_p",
-        "temperature", "eos_id", "min_new_tokens", "rank_bf16",
-    ),
-)
-def spark_generate_mega_b64(
-    params,
-    mega,
-    mega_spec,
-    cfg: spark.SparkTTSConfig,
-    tokens: jax.Array,
-    modality: jax.Array,
-    attention_mask: jax.Array,
-    key: jax.Array,
-    *,
-    max_new_tokens: int = 1024,
-    min_new_tokens: int = 0,
-    temperature: float = 1.0,
-    top_k: int = 50,
-    top_p: float = 0.95,
-    eos_id: Optional[int] = None,
-    rank_bf16: bool = False,
-) -> Tuple[jax.Array, jax.Array]:
-    """`spark_generate` with the decode loop routed through the B=64
-    whole-step megakernel (ops/decode_mega_b64.py). Prefill runs the XLA
-    path on `params`, the state is repacked in-jit, and every decode step
-    is one pallas_call; embed/head/sampling/EOS logic are identical to
-    spark_generate. The batch must be exactly 64 rows (the kernel's lane
-    packing); `mega` = pack_mega_b64 arrays (spec popped), `mega_spec`
-    static."""
-    from rwkvtts_tpu.ops import decode_mega_b64 as dmb
-
-    if eos_id is None:
-        eos_id = cfg.eos_token_id
-    bb = cfg.backbone
-    B = tokens.shape[0]
-    assert B == dmb.B, f"megakernel decode requires B={dmb.B}, got {B}"
-
-    h_last, state = spark.prefill(params, cfg, tokens, modality, attention_mask)
-    state = dmb.pack_mega_state_b64(state, bb)
-
-    def step(carry, step_key):
-        h, st, done, n = carry
-        logits = h @ params["head"].astype(bb.dtype)
-        if not rank_bf16:
-            # rank_bf16 keeps the full-vocab logits in the head's native
-            # bf16 — sampling ranks there and runs fp32 only on the k
-            # survivors (ops/sampling.sample)
-            logits = logits.astype(jnp.float32)
-        if min_new_tokens > 0:
-            logits = jnp.where(
-                (n < min_new_tokens)[..., None]
-                & (jnp.arange(logits.shape[-1]) == eos_id)[None, :],
-                sampling.NEG_INF,
-                logits,
-            )
-        tok = sampling.sample(
-            step_key, logits, temperature=temperature, top_k=top_k,
-            top_p=top_p, rank_bf16=rank_bf16,
-        )
-        tok = jnp.where(done, eos_id, tok)
-        new_done = done | (tok == eos_id)
-        x = spark.decode_embed(params, cfg, tok)
-        h, st = dmb.decode_step_mega_b64(mega, bb, x, st, spec=mega_spec)
-        h = h.astype(bb.dtype)
-        return (h, st, new_done, n + 1), tok
-
-    keys = jax.random.split(key, max_new_tokens)
-    init = (h_last, state, jnp.zeros((B,), bool), jnp.zeros((B,), jnp.int32))
-    (_, _, done, _), toks = jax.lax.scan(step, init, keys)
-    toks = jnp.moveaxis(toks, 0, 1)
     lengths = jnp.argmax(toks == eos_id, axis=-1)
     lengths = jnp.where(jnp.any(toks == eos_id, axis=-1), lengths, max_new_tokens)
     return toks, lengths
@@ -269,17 +189,11 @@ def spark_generate_early_exit(
 
 def _make_cosy_step(
     params, cfg, *, min_new_tokens: int, top_k: int, top_p: float,
-    win_size: int, tau_r: float, mega=None, mega_spec=None,
-    rank_bf16: bool = False,
+    win_size: int, tau_r: float, rank_bf16: bool = False,
 ):
     """One Cosy decode step (RAS sampling + EOS bookkeeping), shared by the
     fixed-length scan (`cosy_generate`) and the chunked streaming decoder
-    (`cosy_decode_chunk`). carry = (h, state, done, recent, n).
-
-    With `mega` (arrays) + `mega_spec` (static) the backbone step routes
-    through the whole-step megakernel (ops/decode_mega.py, B=1 only) and
-    the carried state is the mega layout; embed/head still come from
-    `params`."""
+    (`cosy_decode_chunk`). carry = (h, state, done, recent, n)."""
     from rwkvtts_tpu.models import cosy
 
     eos_id = cfg.eos_token_id
@@ -307,44 +221,22 @@ def _make_cosy_step(
         new_done = done | (tok == eos_id)
         recent = jnp.concatenate([recent[:, 1:], tok[:, None]], axis=1)
         x = cosy.decode_embed(params, cfg, tok)
-        if mega is not None:
-            from rwkvtts_tpu.ops import decode_mega as dm
-            from rwkvtts_tpu.ops import decode_mega_b64 as dmb
-
-            if isinstance(mega_spec, dmb.MegaB64Spec):
-                h, st = dmb.decode_step_mega_b64(mega, bb, x, st, spec=mega_spec)
-            else:
-                h, st = dm.decode_step_mega(mega, bb, x, st, spec=mega_spec)
-            h = h.astype(bb.dtype)
-        else:
-            h, st = rwkv7.decode_step(params, bb, x, st)
+        h, st = rwkv7.decode_step(params, bb, x, st)
         return (h, st, new_done, recent, n + 1), tok
 
     return step
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("cfg", "win_size", "mega_state"),
-)
+@functools.partial(jax.jit, static_argnames=("cfg", "win_size"))
 def cosy_prefill_carry(
     params, cfg, tokens, modality, attention_mask, win_size: int = 10,
-    mega_state: bool = False,
 ):
-    """Prefill and build the chunked-decode carry for `cosy_decode_chunk`.
-
-    mega_state=True packs the state for the megakernel decode path
-    (ops/decode_mega.py; B must be 1) instead of the per-layer views."""
+    """Prefill and build the chunked-decode carry for `cosy_decode_chunk`."""
     from rwkvtts_tpu.models import cosy
 
     B = tokens.shape[0]
     h_last, state = cosy.prefill(params, cfg, tokens, modality, attention_mask)
-    if mega_state:
-        from rwkvtts_tpu.ops import decode_mega as dm
-
-        state = dm.pack_mega_state(state, cfg.backbone)
-    else:
-        state = rwkv7.pack_decode_state(state, cfg.backbone)
+    state = rwkv7.pack_decode_state(state, cfg.backbone)
     return (
         h_last,
         state,
@@ -358,7 +250,7 @@ def cosy_prefill_carry(
     jax.jit,
     static_argnames=(
         "cfg", "chunk_len", "top_k", "top_p", "win_size", "tau_r",
-        "mega_spec", "rank_bf16",
+        "rank_bf16",
     ),
     donate_argnums=(2,),
 )
@@ -374,27 +266,20 @@ def cosy_decode_chunk(
     top_p: float = 0.8,
     win_size: int = 10,
     tau_r: float = 0.1,
-    mega=None,
-    mega_spec=None,
     rank_bf16: bool = False,
 ):
     """Decode `chunk_len` Cosy tokens from a carried state.
 
     The host loop calls this repeatedly, checks `done` between chunks, and
-    stops early once every sequence hit EOS — the TPU-idiomatic answer to
+    stops early once every sequence hit EOS — the compiled-program answer to
     the reference's per-token Python loop with an early break
     (cosy_llm.py:238-261): fixed-shape compiled chunks, host control only
     at chunk granularity, so a 20×-content max length does not cost 20×
-    compute. Returns (carry, toks (B, chunk_len), done (B,)).
-
-    `mega` + `mega_spec` route the backbone through the whole-step
-    megakernel (carry built with cosy_prefill_carry(mega_state=True))."""
-    if mega is None:
-        params = rwkv7.layer_decode_views(params, cfg.backbone)
+    compute. Returns (carry, toks (B, chunk_len), done (B,))."""
+    params = rwkv7.layer_decode_views(params, cfg.backbone)
     step = _make_cosy_step(
         params, cfg, min_new_tokens=min_new_tokens, top_k=top_k, top_p=top_p,
-        win_size=win_size, tau_r=tau_r, mega=mega, mega_spec=mega_spec,
-        rank_bf16=rank_bf16,
+        win_size=win_size, tau_r=tau_r, rank_bf16=rank_bf16,
     )
     keys = jax.random.split(key, chunk_len)
     carry, toks = jax.lax.scan(step, carry, keys)
@@ -465,72 +350,11 @@ def cosy_generate(
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "cfg", "mega_spec", "max_new_tokens", "min_new_tokens",
-        "top_k", "top_p", "win_size", "tau_r", "rank_bf16",
-    ),
-)
-def cosy_generate_mega_b64(
-    params,
-    mega,
-    mega_spec,
-    cfg,
-    tokens: jax.Array,
-    modality: jax.Array,
-    attention_mask: jax.Array,
-    key: jax.Array,
-    *,
-    max_new_tokens: int = 1024,
-    min_new_tokens: int = 0,
-    top_k: int = 25,
-    top_p: float = 0.8,
-    win_size: int = 10,
-    tau_r: float = 0.1,
-    rank_bf16: bool = False,
-) -> Tuple[jax.Array, jax.Array]:
-    """`cosy_generate` (RAS sampling, EOS suppression) with the decode loop
-    routed through the B=64 whole-step megakernel — the Cosy layout of the
-    batched-offline path (BASELINE config #3; spark sibling:
-    spark_generate_mega_b64). Batch must be exactly 64 rows; `mega` =
-    pack_mega_b64 arrays with 'spec' popped, `mega_spec` static."""
-    from rwkvtts_tpu.models import cosy
-    from rwkvtts_tpu.ops import decode_mega_b64 as dmb
-
-    eos_id = cfg.eos_token_id
-    B = tokens.shape[0]
-    assert B == dmb.B, f"megakernel decode requires B={dmb.B}, got {B}"
-    h_last, state = cosy.prefill(params, cfg, tokens, modality, attention_mask)
-    state = dmb.pack_mega_state_b64(state, cfg.backbone)
-    step = _make_cosy_step(
-        params, cfg, min_new_tokens=min_new_tokens, top_k=top_k, top_p=top_p,
-        win_size=win_size, tau_r=tau_r, mega=mega, mega_spec=mega_spec,
-        rank_bf16=rank_bf16,
-    )
-    keys = jax.random.split(key, max_new_tokens)
-    init = (
-        h_last,
-        state,
-        jnp.zeros((B,), bool),
-        jnp.full((B, win_size), -1, jnp.int32),
-        jnp.zeros((B,), jnp.int32),
-    )
-    (_, _, done, _, _), toks = jax.lax.scan(step, init, keys)
-    toks = jnp.moveaxis(toks, 0, 1)
-    lengths = jnp.argmax(toks == eos_id, axis=-1)
-    lengths = jnp.where(
-        jnp.any(toks == eos_id, axis=-1), lengths, max_new_tokens
-    )
-    return toks, lengths
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
         "cfg",
         "max_new_tokens",
         "min_new_tokens",
         "temperature",
         "allow_eos",
-        "mega_spec",
     ),
 )
 def xy_generate(
@@ -544,8 +368,6 @@ def xy_generate(
     min_new_tokens: int = 0,
     temperature: float = 1.0,
     allow_eos: bool = True,
-    mega=None,
-    mega_spec=None,
 ) -> Tuple[jax.Array, jax.Array]:
     """XY 8-channel generation with the staggered flush automaton.
 
@@ -571,17 +393,8 @@ def xy_generate(
     pad = cfg.speech_pad_id
 
     h_last, state = xy_model.prefill(params, cfg, input_ids, attention_mask)
-    if mega is not None:
-        # B=64 whole-step megakernel route (`mega` = pack_mega_b64 arrays,
-        # spec popped and passed static); channel heads/embeds still come
-        # from `params`, same as the spark/cosy mega generates
-        from rwkvtts_tpu.ops import decode_mega_b64 as dmb
-
-        assert B == dmb.B, f"megakernel decode requires B={dmb.B}, got {B}"
-        state = dmb.pack_mega_state_b64(state, bb)
-    else:
-        state = rwkv7.pack_decode_state(state, bb)
-        params = rwkv7.layer_decode_views(params, bb)
+    state = rwkv7.pack_decode_state(state, bb)
+    params = rwkv7.layer_decode_views(params, bb)
 
     ch_arange0 = jnp.arange(cfg.text_vocab_size)
     audio_mask0 = (ch_arange0 >= lo) & (ch_arange0 < hi)
@@ -634,13 +447,7 @@ def xy_generate(
         n = n + jnp.where(is_audio & ~done, 1, 0)
 
         x = xy_model.decode_embed(params, cfg, frame)
-        if mega is not None:
-            from rwkvtts_tpu.ops import decode_mega_b64 as dmb
-
-            h, st = dmb.decode_step_mega_b64(mega, bb, x, st, spec=mega_spec)
-            h = h.astype(bb.dtype)
-        else:
-            h, st = rwkv7.decode_step(params, bb, x, st)
+        h, st = rwkv7.decode_step(params, bb, x, st)
         return (h, st, countdown, new_done, n), frame
 
     keys = jax.random.split(key, max_new_tokens)

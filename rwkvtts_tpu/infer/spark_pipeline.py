@@ -50,20 +50,16 @@ class SparkPipeline:
         quantize_int4: bool = False,
         spec_k: int = 0,
         spec_draft: str = "int8",
-        fuse_projections: bool = True,
     ):
         from rwkvtts_tpu.models import rwkv7
 
         self.cfg = lm_cfg
         # fused decode projections (exact same math, fewer dispatches);
-        # opt-in int8 decode weights (quality bound: zero greedy flips at
-        # 0.4B, scripts/measure_int8_quality.py + PERF.md round 3).
-        # fuse_projections=False keeps the raw weights only (the fused
-        # pair stores projections twice) — pass it when another engine
-        # owns decode, e.g. the megakernel serving pool (launch --mega).
+        # opt-in int8 decode weights (quality probe:
+        # scripts/measure_int8_quality.py)
         self.params = rwkv7.pack_decode_params(
             lm_params, lm_cfg.backbone, quantize_int8=quantize_int8,
-            quantize_int4=quantize_int4, fuse_projections=fuse_projections,
+            quantize_int4=quantize_int4,
         )
         # opt-in self-speculative B=1 decode (infer/spec_decode.py): a
         # quantized DRAFT proposes spec_k tokens, one full-precision chunk
@@ -75,14 +71,12 @@ class SparkPipeline:
         self.draft_params = None
         if self.spec_k:
             if self.spec_k > 8:
-                # k=16 RESOURCE_EXHAUSTEDs mid-run at 1.5B on a 16 GB chip
-                # (chipq_s8.log, spec_generate_greedy) and the measured k=8
-                # economics are already a 0.40x loss (PERF.md round 4) —
-                # larger windows only cost more verify FLOPs.
+                # the verify forward collects one full state per window
+                # position, so memory grows with k; larger windows only
+                # cost more verify FLOPs.
                 raise ValueError(
-                    "spec_k > 8 is not supported: the verify window OOMs"
-                    " 16 GB HBM at deployed sizes and k=8 already measured"
-                    " 0.40x plain decode (PERF.md round 4)"
+                    "spec_k > 8 is not supported: the verify window keeps"
+                    " one full decode state per position"
                 )
             if quantize_int8 or quantize_int4:
                 raise ValueError(
@@ -111,7 +105,6 @@ class SparkPipeline:
         self.sample_rate = sample_rate
         # prompts pad up to a multiple of this so serving traffic compiles
         # one prefill program per 64-token bucket, not per text length
-        # (PERF.md round-2 streaming lesson)
         self.prompt_pad_multiple = prompt_pad_multiple
 
     # -- prompt construction --------------------------------------------------

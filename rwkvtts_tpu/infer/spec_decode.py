@@ -1,18 +1,18 @@
 """Lossless self-speculative greedy decoding for the B=1 latency path.
 
-B=1 decode at deployed sizes is weight-bandwidth-bound (PERF.md: 1.5B
-bf16 is 4.5 ms/step ~= the 2.9 GB weight-read roofline). Speculative
+B=1 decode at deployed sizes is weight-bandwidth-bound: every step reads
+all the weights to produce one token. Speculative
 decoding attacks exactly that bound: a cheap DRAFT model proposes K
 tokens one step at a time, then the full-precision model VERIFIES all K
 in ONE chunked forward — reading the bf16 weights once per K tokens
 instead of once per token (the verify pass's projections are (K,C)@(C,D)
-matmuls, so the MXU amortizes the weight read over the window).
+matmuls, so the tensor cores amortize the weight read over the window).
 
 Here the draft is the SAME model with int8/int4 decode weights
 (models/rwkv7.pack_decode_params) — "self-speculative": no second model
-to train or load, and the measured int8 top-1 agreement is 1.0000 over
-256 steps (PERF.md), so the acceptance rate is ~1 and the output is
-BIT-EXACT the bf16 greedy rollout at int8-class speed.
+to train or load; where int8 and bf16 agree on the top-1 token the
+acceptance rate is ~1, and the output is BIT-EXACT the bf16 greedy
+rollout either way.
 
 Round structure (no commit pass, no rollback pass):
   - state S = verifier state after the committed prefix, h = last hidden;
@@ -27,9 +27,9 @@ Round structure (no commit pass, no rollback pass):
     rejection costs nothing beyond the shortened acceptance window.
 
 The reference has no speculative path at all (its decode is the
-one-token-per-launch CUDA kernel, cuda/rwkv7_state_fwd_fp16.cu); this is
-a TPU-shaped win: the verify chunk is exactly the MXU-friendly prefill
-form the chunked WKV already serves.
+one-token-per-launch CUDA kernel, cuda/rwkv7_state_fwd_fp16.cu); the
+verify chunk is exactly the matmul-shaped prefill form the chunked WKV
+already serves.
 
 Two modes:
   - GREEDY (spec_generate_greedy): output bit-exact the plain greedy

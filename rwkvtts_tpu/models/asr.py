@@ -1,4 +1,4 @@
-"""RWKV-7 ASR model family, TPU-native.
+"""RWKV-7 ASR model family.
 
 Reference parity (behavior, /root/reference):
   * v1 "discrete": RWKV7ASRModel(audio_lm over audio token ids -> projector
@@ -10,7 +10,7 @@ Reference parity (behavior, /root/reference):
   * v3 is v2 on the from-scratch CUDA stack (rwkv_asr_cuda_whisper.py) —
     subsumed here: same math, our kernels.
 
-TPU-first packing: the reference splices per-sample valid segments with a
+Packing: the reference splices per-sample valid segments with a
 host Python loop over the batch (rwkv_asr.py:92-130). Here the pack is a
 vectorized right-aligned scatter computed inside jit — per-segment cumsum
 ranks + one scatter per tensor, static shapes, GSPMD-compatible.

@@ -1,4 +1,4 @@
-"""RWKV-7 core model, TPU-native.
+"""RWKV-7 core model.
 
 Functional (config → params pytree → pure apply), with all layers stored
 stacked along a leading axis so the depth dimension runs as a single
@@ -12,14 +12,14 @@ Math parity sources (reference, /root/reference):
   * block assembly / ln0:              model/llm/rwkv_asr_cuda_whisper.py:296-336
   * decode-step math:                  model/llm/rwkv_s2s_single_ffn.py:482-556
 
-Differences by design (TPU-first, not a translation):
+Differences by design (not a line-by-line translation):
   * ln0 (the layer-0 pre-norm) is folded into the embedding path, so every
     block is identical and scannable (the reference's own eval runtime does
     the same fold, rwkv_s2s_single_ffn.py:395).
   * Layer 0 carries (ignored) v0/v1/v2 so the stacked pytree is uniform;
     selection happens with `jnp.where(layer_idx == 0, ...)` inside the scan.
-  * The WKV recurrence runs through ops/wkv7.py (chunked matmul form on the
-    MXU) instead of a per-step CUDA kernel.
+  * The WKV recurrence runs through ops/wkv7.py (chunked matmul form that
+    XLA compiles) instead of a per-step CUDA kernel.
 """
 from __future__ import annotations
 
@@ -52,46 +52,19 @@ class RWKV7Config:
     # GroupNorm eps = 1e-5 * head_size_divisor**2 with divisor 8
     ln_x_eps: float = 64e-5
     dtype: Any = jnp.bfloat16
-    # 'auto': fused Pallas kernels on a single TPU chip, XLA chunked
-    # elsewhere (ops/wkv7.wkv7 resolves it; PERF.md round-2 numbers)
-    wkv_impl: str = "auto"
+    # 'chunked' (matmul form, training/prefill) or 'scan' (per-step
+    # reference); ops/wkv7.resolve_impl validates it
+    wkv_impl: str = "chunked"
     wkv_chunk: int = 32
-    # pallas-impl knobs (ignored by other impls): (batch*head) slices per
-    # grid step, and matmul operand precision ('f32' | 'bf16')
-    wkv_group: int = 8
-    # separate backward-kernel group (None = same as wkv_group); the bwd
-    # kernel's VMEM footprint is ~3x the forward's, so a big forward group
-    # can pair with a smaller backward one
-    wkv_group_bwd: Optional[int] = None
-    wkv_mm: str = "f32"
-    # pallas backward solve strategy: 'saved' stores each chunk's Neumann
-    # inverse from the forward so the backward's solve adjoint is two
-    # matmuls; 'autodiff' differentiates through the doubling chain
-    # (ops/wkv7_pallas.py, PERF.md round 3)
-    wkv_solve: str = "saved"
     remat: bool = True
     # Selective rematerialization: None = full replay (lowest memory);
-    # 'dots' = save matmul outputs, recompute elementwise; 'wkv' = save the
-    # Pallas WKV outputs so the backward replay skips the forward kernel
-    # (+HBM: y bf16 + entry states f32 per layer)
+    # 'dots' = save matmul outputs, recompute elementwise
     remat_policy: Optional[str] = None
-    # Fold the post-projection elementwise band (kk normalize, k_a mix,
-    # ln_x GroupNorm, bonus term) into the Pallas WKV kernel pair. Only
-    # takes effect where the impl resolves to 'pallas' (single-chip TPU);
-    # elsewhere the composed path below runs, with identical semantics.
-    wkv_fuse_prep: bool = False
-    # Decode: keep the WKV state in the head-pair-packed (P, N, 2N) layout
-    # and step it with the in-place Pallas kernel (ops/wkv7_step_pallas).
-    # Opt-in: at B<=64 the XLA step wins (launch overhead), but past
-    # B~128 XLA re-materializes the carried state every step (copies grow
-    # superlinearly, PERF.md round 3) and the one-pass kernel is the fix.
-    decode_wkv_packed: bool = False
     # Decode: carry the WKV state bf16 between steps (math stays fp32
     # inside the step; the state is cast at the carry boundary). Halves
-    # the dominant HBM traffic at deployed sizes — the reference's own
-    # batched decode kernel carries fp16 state (rwkv7_state_fwd_fp16.cu).
-    # Opt-in: measured SLOWER at 103M (the casts outweigh the halved
-    # traffic, PERF.md round 2) and quality-affecting in principle
+    # the state's share of the decode step's memory traffic — the
+    # reference's own batched decode kernel carries fp16 state
+    # (rwkv7_state_fwd_fp16.cu). Opt-in: quality-affecting in principle
     # (memorized-decode reproduction is CI-tested).
     decode_state_bf16: bool = False
     # Python-unrolled layer loop for the full-sequence forward (instead of
@@ -376,28 +349,6 @@ def block_forward(
         x = x + kf @ cast(ffn["value"])
         new_st = {"att_x": xn, "wkv": all_wkv, "ffn_x": xn2}
         return x, v_first, new_st
-    if (
-        cfg.wkv_spans == 1
-        and cfg.wkv_fuse_prep
-        and wkv7_ops.resolve_impl(cfg.wkv_impl) == "pallas"
-    ):
-        from rwkvtts_tpu.ops import wkv7_pallas
-
-        hn = lambda p: p.astype(jnp.float32).reshape(H, N)
-        y, wkv_state = wkv7_pallas.wkv7_pallas_fused(
-            shp(r), shp(w_raw), shp(k), shp(v), shp(a),
-            hn(att["k_k"]), hn(att["k_a"]), hn(att["r_k"]),
-            hn(att["ln_x_scale"]), hn(att["ln_x_bias"]),
-            state=None if st is None else st["wkv"],
-            resets=resets,
-            ln_eps=cfg.ln_x_eps,
-            chunk=max(cfg.wkv_chunk, 64),
-            group=cfg.wkv_group,
-            group_bwd=cfg.wkv_group_bwd,
-            mm_dtype=cfg.wkv_mm,
-            solve=cfg.wkv_solve,
-        )
-        y = y.reshape(B, T, C)
     else:
         kk = l2_normalize(
             (k * cast(att["k_k"])).reshape(B, T, H, N)
@@ -409,10 +360,6 @@ def block_forward(
             resets=resets,
             impl=cfg.wkv_impl,
             chunk=cfg.wkv_chunk,
-            group=cfg.wkv_group,
-            group_bwd=cfg.wkv_group_bwd,
-            mm_dtype=cfg.wkv_mm,
-            solve=cfg.wkv_solve,
             spans=cfg.wkv_spans,
         )
         y = y.reshape(B, T, C)
@@ -500,12 +447,6 @@ def forward(
             None: None,
             "dots": jax.checkpoint_policies.checkpoint_dots,
             "dots_no_batch": jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims,
-            # save the WKV kernel outputs (named in ops/wkv7_pallas.py):
-            # the backward replay rebuilds projections but never re-runs
-            # the forward Pallas kernel (~90 ms/step at 0.4B, profiled)
-            "wkv": jax.checkpoint_policies.save_only_these_names(
-                "wkv_y", "wkv_s_fin", "wkv_s_entry", "wkv_inv"
-            ),
         }[cfg.remat_policy]
         fn = jax.checkpoint(body, policy=policy) if policy else jax.checkpoint(body)
     else:
@@ -615,63 +556,34 @@ def pack_decode_state(state: Params, cfg: RWKV7Config):
     per-layer dicts for the python-unrolled decode loop.
 
     Why: with stacked state, the unrolled layer scan stacks each layer's
-    new state back into the (L,...) buffer with a dynamic-update-slice —
-    at decode batch 64 those copies alone are ~0.9 ms of a 3.3 ms step
-    (profiled; the WKV state is 12.6 MB/layer fp32). With one leaf per
-    layer the while-loop carries each state buffer independently and XLA
-    updates it in place — no stacking copies.
+    new state back into the (L,...) buffer with a dynamic-update-slice
+    copy every step. With one leaf per layer the loop carries each state
+    buffer independently and XLA updates it in place.
 
-    With cfg.decode_wkv_packed (and an even head count) each layer's wkv
-    leaf is additionally converted to the head-pair-packed (P, N, 2N)
-    layout, which routes wkv7_step through the one-HBM-pass Pallas step
-    kernel (state updated in place via input/output aliasing). Composes
-    with cfg.decode_state_bf16: the packed leaf is carried bf16 and the
-    kernel steps it in f32 — the halved state bytes stack on top of the
-    single-pass update."""
-    pack_wkv = cfg.decode_wkv_packed and cfg.num_heads % 2 == 0
+    With cfg.decode_state_bf16 each layer's wkv leaf is carried bf16
+    (wkv7_step steps it in fp32 and casts back)."""
 
-    def _maybe_pack(st_l):
-        if pack_wkv and st_l["wkv"].ndim == 4:
-            from rwkvtts_tpu.ops import wkv7_step_pallas as sp
-
-            st_l = {**st_l, "wkv": sp.pack_state(st_l["wkv"])}
+    def _cast(st_l):
         if cfg.decode_state_bf16 and st_l["wkv"].dtype != jnp.bfloat16:
-            # carried bf16, stepped in fp32 (wkv7_step preserves the carry
-            # dtype) — halves the decode state's HBM bytes
-            st_l = {**st_l, "wkv": st_l["wkv"].astype(jnp.bfloat16)}
+            return {**st_l, "wkv": st_l["wkv"].astype(jnp.bfloat16)}
         return st_l
 
     if isinstance(state, tuple):
-        need_pack = pack_wkv and any(st["wkv"].ndim == 4 for st in state)
-        need_cast = cfg.decode_state_bf16 and any(
-            st["wkv"].dtype != jnp.bfloat16 for st in state
-        )
-        if not need_pack and not need_cast:
+        if not cfg.decode_state_bf16 or all(
+            st_l["wkv"].dtype == jnp.bfloat16 for st_l in state
+        ):
             return state
-        return tuple(_maybe_pack(st_l) for st_l in state)
+        return tuple(_cast(st_l) for st_l in state)
     L = state["att_x"].shape[0]
-    return tuple(
-        _maybe_pack({k: state[k][l] for k in _STATE_KEYS}) for l in range(L)
-    )
+    return tuple(_cast({k: state[k][l] for k in _STATE_KEYS}) for l in range(L))
 
 
 def unpack_decode_state(state, cfg: RWKV7Config) -> Params:
-    """Inverse of pack_decode_state: tuple-of-layers -> stacked dict.
-
-    Round-trip with pack_decode_state is asserted in
-    tests/test_rwkv7_model.py::test_decode_state_pack_roundtrip."""
+    """Inverse of pack_decode_state: tuple-of-layers -> stacked dict (the
+    wkv leaf keeps its carry dtype)."""
     if isinstance(state, tuple):
-        def leaf(st, k):
-            x = st[k]
-            if k == "wkv" and x.ndim == 3:  # head-pair-packed layout
-                from rwkvtts_tpu.ops import wkv7_step_pallas as sp
-
-                H = cfg.num_heads
-                return sp.unpack_state(x, 2 * x.shape[0] // H, H)
-            return x
-
         return {
-            k: jnp.stack([leaf(st, k) for st in state]) for k in _STATE_KEYS
+            k: jnp.stack([st[k] for st in state]) for k in _STATE_KEYS
         }
     return state
 
@@ -702,7 +614,7 @@ def pack_decode_params(
         (xn + xx*x_s) @ W = xn @ W + xx @ (diag(x_s) W),
     all of r/k/v and the four lora-in matmuls collapse into TWO matmuls
     against concatenated weights — the decode step is dispatch/latency
-    bound at small batch, so fewer, larger matmuls win (PERF.md).
+    bound at small batch, so fewer, larger matmuls win.
     Returns params + blocks.att.{fused_a, fused_b} of shape
     (L, C, 3C+Dw+Da+Dv+Dg), both stored in cfg.dtype.
 
@@ -796,7 +708,7 @@ def decode_step(
     """One autoregressive step. x: (B, C) token embeddings (pre-ln0).
 
     The whole depth is one scanned program; with jit + donated state this is
-    the TPU replacement for the reference's persistent-state decode kernels
+    the replacement for the reference's persistent-state decode kernels
     (cuda/rwkv7_state_fwd_fp16.cu) — state lives in HBM across steps, every
     step is a single executable.
     """
@@ -895,7 +807,7 @@ def decode_step(
         new_state = tuple(new_states)
     else:
         # fully unrolled over layers: decode is latency-bound, and unrolling
-        # lets XLA schedule/fuse across the whole depth (PERF.md)
+        # lets XLA schedule/fuse across the whole depth
         (x, _), new_state = jax.lax.scan(
             body,
             (x, jnp.zeros_like(x)),

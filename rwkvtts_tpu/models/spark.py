@@ -6,7 +6,7 @@ Parity source: /root/reference/model/llm/spark_llm.py
   * input dropout 0.02 during training (:34,124-125)
   * training loss = fused linear CE with internal label shift (:139-160)
 
-TPU-first redesign: the reference's collators concatenate *embeddings* on
+Redesign: the reference's collators concatenate *embeddings* on
 device per sample (utils/multiple_jsonl.py:34-54). Here collators are
 host-side token-domain functions (data/spark.py) producing
 (tokens, modality) int arrays; the embedding concat happens inside the

@@ -11,10 +11,10 @@ Parity source: /root/reference/model/llm/xy_llm.py
     then a (channels-1)-step staggered EOS/PAD flush that drains the
     diagonal delay                                                   (:83-134)
 
-TPU-first: channels live in one (B, T, 8) int array; embedding is a single
+Layout: channels live in one (B, T, 8) int array; embedding is a single
 batched gather per table summed on device; the 8 heads are one stacked
 (8, C, V_max) einsum with per-channel vocab masking, so the whole head runs
-as one MXU matmul instead of 8 small ones.
+as one matmul instead of 8 small ones.
 """
 from __future__ import annotations
 

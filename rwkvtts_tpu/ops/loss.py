@@ -1,7 +1,7 @@
 """Loss functions.
 
 The reference trains with rwkv-fla's FusedLinearCrossEntropyLoss (no logits
-materialized; reference spark_llm.py:139-160). On TPU the same memory profile
+materialized; reference spark_llm.py:139-160). Here the same memory profile
 is achieved by chunking the time axis and rematerializing: logits for each
 time-chunk are computed, reduced to (loss, z-stats), and freed — XLA fuses
 the hidden@W_head matmul with the log-softmax reduction per chunk.
@@ -27,7 +27,7 @@ def _chunk_ce(hidden, w_head, bias, labels, valid, smoothing=0.0):
     """CE (optionally label-smoothed KL) for one time-chunk. hidden (M, C),
     labels (M,). Returns (sum_loss, sum_maxlogit_sq); invalid positions
     contribute zero."""
-    # matmul in the input dtype (bf16 on the MXU) with fp32 accumulation;
+    # matmul in the input dtype (bf16 tensor cores) with fp32 accumulation;
     # all softmax statistics stay fp32
     logits = jnp.matmul(hidden, w_head, preferred_element_type=jnp.float32)
     if bias is not None:

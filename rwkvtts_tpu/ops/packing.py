@@ -2,7 +2,7 @@
 
 The reference builds multi-segment prompts ([instr][audio][hints][answer],
 [text][audio], ...) with host-side per-sample Python loops + pad_sequence
-(model/llm/rwkv_asr.py:92-130, model/llm/rwkv_tts.py:47-80). On TPU that
+(model/llm/rwkv_asr.py:92-130, model/llm/rwkv_tts.py:47-80). Here that
 becomes a right-aligned scatter computed inside jit: per-segment cumsum
 ranks, one scatter per tensor, static shapes, GSPMD-compatible.
 """

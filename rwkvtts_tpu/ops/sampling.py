@@ -62,9 +62,8 @@ def sample(
     rank_bf16=True runs the full-vocab candidate RANKING (lax.top_k) in
     bf16 on the raw logits — temperature is order-preserving, so it (and
     the fp32 math) applies only to the k survivors. This removes the
-    full-vocab fp32 convert + divide + fp32 TopK from the decode hot loop
-    (the cost between the 1.567 ms greedy megakernel step and the 2.17 ms
-    sampled step, PERF.md r5). Semantics: candidate selection at bf16
+    full-vocab fp32 convert + divide + fp32 TopK from the decode hot loop.
+    Semantics: candidate selection at bf16
     resolution (~3 significant digits); probabilities on the kept set are
     exact fp32."""
     if rank_bf16 and top_k and 0 < top_k < logits.shape[-1] and top_p < 1.0:

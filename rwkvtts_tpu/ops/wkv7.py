@@ -1,4 +1,4 @@
-"""WKV7 — the RWKV-7 time-mix recurrence, TPU-native.
+"""WKV7 — the RWKV-7 time-mix recurrence.
 
 The recurrence (per 64-dim head, per step; reference semantics:
 /root/reference/model/llm/cuda/wkv7_cuda.cu:10-52 and the pure-Python spec at
@@ -16,10 +16,10 @@ the model (see models/rwkv7.py).
 Three implementations, one contract:
 
   * ``wkv7_scan``    — per-step `lax.scan`. Ground truth + tiny-T fallback.
-  * ``wkv7_chunked`` — chunk-parallel matmul formulation (the TPU-native
+  * ``wkv7_chunked`` — chunk-parallel matmul formulation (the XLA
     equivalent of the reference's CHUNK_LEN=16 "wind_backstepping" CUDA
-    kernel). All within-chunk work is batched matmuls that tile onto the
-    MXU; the sequential dependency is only across chunks (a short
+    kernel). All within-chunk work is batched matmuls that XLA hands to the
+    tensor cores; the sequential dependency is only across chunks (a short
     `lax.scan` carrying the (B,H,N,N) state). Differentiable; the chunk
     body is `jax.checkpoint`-ed so the backward replays each chunk from its
     entry state — the same checkpoint-and-recompute strategy as the CUDA
@@ -55,7 +55,7 @@ import jax
 import jax.numpy as jnp
 
 STATE_DTYPE = jnp.float32
-DEFAULT_CHUNK = 32  # sweep: 32 -> 37.6 KT/s, 64 -> 36.5, 128 -> 34.0 (PERF.md)
+DEFAULT_CHUNK = 32
 # w_raw used for padding positions: exp(-exp(-30)) ~= 1.0 (identity decay).
 _PAD_W_RAW = -30.0
 
@@ -131,7 +131,7 @@ def wkv7_scan(
 
 
 # ---------------------------------------------------------------------------
-# Chunked (MXU) implementation
+# Chunked (matmul) implementation
 # ---------------------------------------------------------------------------
 
 
@@ -158,7 +158,7 @@ def _chunk_body(s0, seg0, chunk_inputs, *, chunk: int):
     r, logw, k, v, z, b, resets = chunk_inputs
     # inputs may arrive in their model dtype (bf16): the scan slices then
     # move half the bytes; the up-cast here is exact and fuses into the
-    # first consumer (profiler: chunk-input slicing was ~16 ms/step fp32)
+    # first consumer
     f32 = lambda t: t.astype(jnp.float32)
     r, logw, k, v, z, b = map(f32, (r, logw, k, v, z, b))
     L = chunk
@@ -169,8 +169,7 @@ def _chunk_body(s0, seg0, chunk_inputs, *, chunk: int):
     logw = jnp.where(resets[:, :, None, None] > 0, 0.0, logw)
     g = jnp.cumsum(logw, axis=1)  # inclusive (B,L,H,N)
 
-    # 2 exps + 1 reciprocal instead of 3 exps (the prep fusion is the
-    # hottest VPU op in the chunk loop — PERF.md profiler notes):
+    # 2 exps + 1 reciprocal instead of 3 exps:
     # exp(gp) = exp(g - logw) = e_g * exp(-logw);  exp(-g) = 1 / e_g
     e_g = jnp.exp(g)
     e_ginv = jnp.reciprocal(e_g)
@@ -286,7 +285,7 @@ def wkv7_chunked(
 
 
 # ---------------------------------------------------------------------------
-# Chunked v2: state-independent work hoisted out of the sequential scan
+# State-independent chunk prep (the building block of the span path below)
 # ---------------------------------------------------------------------------
 
 
@@ -300,7 +299,7 @@ def _chunk_prep(r, logw, k, v, z, b, resets, *, chunk: int):
         s_out= s_pre + live0·s0·exp(g_L) + (z0 s0ᵀ)ᵀ-contraction with C
                                                       C_mn = Σ_l inv_lm b_fin_ln
     where y_pre = QB sa_kv + QK v and s_pre = sa_kvᵀ b_fin + vᵀ k_fin are
-    state-free. Everything here lowers to large batched MXU matmuls with
+    state-free. Everything here lowers to large batched matmuls with
     (n_chunks·B·H) batch — the serial critical path shrinks ~4x.
     """
     L = chunk
@@ -372,61 +371,6 @@ def _chunk_step(s0, seg0, p):
     return s_out, seg0 + p["c_last"], y
 
 
-def wkv7_chunked_v2(
-    r: jax.Array,
-    w_raw: jax.Array,
-    k: jax.Array,
-    v: jax.Array,
-    z: jax.Array,
-    b: jax.Array,
-    state: Optional[jax.Array] = None,
-    resets: Optional[jax.Array] = None,
-    *,
-    chunk: int = DEFAULT_CHUNK,
-) -> Tuple[jax.Array, jax.Array]:
-    """Chunk-parallel WKV7 with hoisted prep (see _chunk_prep). Same
-    contract as wkv7_chunked."""
-    B, T, H, N = r.shape
-    out_dtype = v.dtype
-    if state is None:
-        state = init_state(B, H, N)
-    pad = (-T) % chunk
-    f32 = lambda x: x.astype(jnp.float32)
-    logw = log_decay_from_raw(w_raw)
-    if pad:
-        zpad = lambda x: jnp.pad(x, ((0, 0), (0, pad), (0, 0), (0, 0)))
-        r, k, v, z, b = (zpad(f32(x)) for x in (r, k, v, z, b))
-        logw = jnp.pad(logw, ((0, 0), (0, pad), (0, 0), (0, 0)))
-    else:
-        r, k, v, z, b = (f32(x) for x in (r, k, v, z, b))
-    Tp = T + pad
-    n_chunks = Tp // chunk
-    if resets is None:
-        resets_i = jnp.zeros((B, Tp), dtype=jnp.int32)
-    else:
-        resets_i = resets.astype(jnp.int32)
-        if pad:
-            resets_i = jnp.pad(resets_i, ((0, 0), (0, pad)))
-
-    def to_chunks(x):
-        return jnp.moveaxis(x.reshape((B, n_chunks, chunk) + x.shape[2:]), 1, 0)
-
-    xs = tuple(to_chunks(x) for x in (r, logw, k, v, z, b, resets_i))
-    prep = jax.vmap(functools.partial(_chunk_prep, chunk=chunk))(*xs)
-    # the chunk's own v is still needed for y? no — y fully covered by prep +
-    # state terms. Scan carries only (state, seg).
-    seg0 = jnp.zeros((B,), dtype=jnp.int32)
-
-    def scan_fn(carry, p):
-        s, seg = carry
-        s_out, seg_out, y = _chunk_step(s, seg, p)
-        return (s_out, seg_out), y
-
-    (s_fin, _), ys = jax.lax.scan(scan_fn, (state, seg0), prep)
-    y = jnp.moveaxis(ys, 0, 1).reshape(B, Tp, H, N)[:, :T]
-    return y.astype(out_dtype), s_fin
-
-
 # ---------------------------------------------------------------------------
 # Hierarchical / sequence-parallel chunking (two-level state pass)
 # ---------------------------------------------------------------------------
@@ -442,7 +386,7 @@ def wkv7_chunked_v2(
 #     per-span local scans (parallel over spans)  +  an O(spans) compose.
 # Two uses, one code path:
 #   * wkv_spans>1 on ONE device: the serial critical path of the chunk scan
-#     shrinks by `spans` (the "two-level chunk hierarchy" lever, PERF.md);
+#     shrinks by `spans`;
 #   * T sharded over a mesh axis: each device computes its local span's
 #     (y0, Cyp, Q, P) independently; only the tiny (B,H,N,N) compose scan
 #     crosses devices (GSPMD inserts the collective-permutes) — the
@@ -590,25 +534,7 @@ def wkv7_step(
     Equivalent to the persistent-state inference kernels
     (reference cuda/rwkv7_state_fwd_fp16.cu) but batched and designed to be
     fused by XLA into a single whole-model decode program.
-
-    A 3-D state selects the PACKED path: (P, N, 2N) head-pair-packed
-    layout through the fused Pallas step kernel on TPU (one HBM pass over
-    the state instead of ~4 — see ops/wkv7_step_pallas.py), or its XLA
-    reference elsewhere. Production decode loops reach it by setting
-    `cfg.decode_wkv_packed` (models/rwkv7.py::pack_decode_state then packs
-    each layer's wkv leaf); it wins in the ~96-128-row slot-pool regime
-    and loses to the XLA form below at small B to per-call launch/DMA
-    overhead (PERF.md round 3: B=64 13.2k vs 14.2k tok/s, B=128 10.2k vs
-    9.0k) — hence opt-in per config rather than a global default.
     """
-    if state.ndim == 3:
-        from rwkvtts_tpu.ops import wkv7_step_pallas as sp
-
-        if jax.default_backend() == "tpu":
-            return sp.wkv7_step_packed(
-                state, r, w_raw, k, v, z, b, group=sp.DEFAULT_STEP_GROUP
-            )
-        return sp.wkv7_step_packed_ref(state, r, w_raw, k, v, z, b)
     out_dtype = v.dtype
     # the carry dtype is preserved: a bf16 state (cfg.decode_state_bf16)
     # is stepped in fp32 and cast back at the carry boundary — the
@@ -619,10 +545,6 @@ def wkv7_step(
     r, k, v, z, b = map(f32, (r, k, v, z, b))
     state = f32(state)
     w = decay_from_raw(w_raw)
-    # NOTE (measured, PERF.md): reassociating y to read only the OLD state
-    # (y = S(w*r) + sa(b.r) + v(k.r), one stacked einsum) is fewer HBM
-    # passes on paper but decodes 15% SLOWER — the (bhij,bhcj->bhci)
-    # stacked contraction lowers poorly. Keep the direct form.
     sa = jnp.einsum("bhij,bhj->bhi", state, z)
     state = (
         state * w[:, :, None, :]
@@ -637,16 +559,15 @@ def wkv7_step(
 # Dispatch
 # ---------------------------------------------------------------------------
 
+IMPLS = ("chunked", "scan")
 
-def resolve_impl(impl: str = "auto") -> str:
-    """'auto' -> 'pallas' on a single TPU chip, 'chunked' elsewhere (CPU
-    tests and multi-device GSPMD jit, where an unsharded Pallas call would
-    force an operand gather)."""
-    if impl != "auto":
-        return impl
-    if jax.default_backend() == "tpu" and jax.device_count() == 1:
-        return "pallas"
-    return "chunked"
+
+def resolve_impl(impl: str) -> str:
+    """Validate a WKV implementation name: 'chunked' (training/prefill) or
+    'scan' (the per-step reference)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown wkv7 impl: {impl!r} (expected one of {IMPLS})")
+    return impl
 
 
 def wkv7(
@@ -661,53 +582,21 @@ def wkv7(
     *,
     impl: str = "chunked",
     chunk: int = DEFAULT_CHUNK,
-    group: int = 8,
-    group_bwd=None,
-    mm_dtype: str = "f32",
-    solve: str = "saved",
     spans: int = 1,
 ):
     """Dispatching entry point used by the models.
 
-    impl: 'chunked' (training/prefill), 'scan' (reference), 'pallas'
-    (fused Pallas fwd+bwd kernels, see ops/wkv7_pallas.py; group/mm_dtype
-    apply only there), or 'auto'.
+    impl: 'chunked' (training/prefill) or 'scan' (reference).
 
     spans > 1 selects the two-level hierarchical path (wkv7_chunked_sp)
-    regardless of impl — the XLA formulation is the multi-device rule, and
-    spans is also the sequence-parallel sharding unit when T is sharded.
-
-    'auto' resolves to the fused Pallas kernels on a single TPU chip
-    (measured: 435 -> 352 ms train step on the 103M flagship, PERF.md r2)
-    and to the XLA chunked path elsewhere — CPU (tests) and multi-device
-    GSPMD jit, where an unsharded Pallas call would force XLA to gather
-    its operands (wrap wkv7_pallas in shard_map for multi-chip use; see
-    tests/test_wkv7_pallas.py::test_pallas_under_shard_map).
+    regardless of impl; spans is also the sequence-parallel sharding unit
+    when T is sharded.
     """
+    impl = resolve_impl(impl)
     if spans > 1:
         return wkv7_chunked_sp(
             r, w_raw, k, v, z, b, state, resets, chunk=chunk, spans=spans
         )
-    if impl == "auto":
-        impl = resolve_impl(impl)
-        if impl == "pallas":
-            chunk = max(chunk, 64)  # pallas tiles want 128-row pairs
     if impl == "scan":
         return wkv7_scan(r, w_raw, k, v, z, b, state, resets)
-    if impl == "chunked":
-        return wkv7_chunked(r, w_raw, k, v, z, b, state, resets, chunk=chunk)
-    if impl == "chunked_hoisted":
-        # measured SLOWER in-model (754 vs 565 ms train step): the hoisted
-        # prep materializes (n_chunks,B,H,L,L) tensors to HBM, losing more
-        # bandwidth than the shorter serial path saves. Kept for reference
-        # and for very small-batch prefill where HBM is idle.
-        return wkv7_chunked_v2(r, w_raw, k, v, z, b, state, resets, chunk=chunk)
-    if impl == "pallas":
-        from rwkvtts_tpu.ops import wkv7_pallas
-
-        return wkv7_pallas.wkv7_pallas(
-            r, w_raw, k, v, z, b, state, resets,
-            chunk=chunk, group=group, group_bwd=group_bwd,
-            mm_dtype=mm_dtype, solve=solve,
-        )
-    raise ValueError(f"unknown wkv7 impl: {impl!r}")
+    return wkv7_chunked(r, w_raw, k, v, z, b, state, resets, chunk=chunk)

@@ -1,8 +1,10 @@
 """Device mesh + sharding rules.
 
 The reference scales with DeepSpeed ZeRO-2/3 over NCCL (SURVEY.md §2.7).
-TPU-native replacement: a ("dp", "fsdp", "tp") mesh; GSPMD inserts all
-collectives (grad psum over dp/fsdp rides ICI; tp shards the matmuls).
+Replacement: a ("dp", "fsdp", "tp") mesh; GSPMD inserts all collectives,
+which XLA hands to NCCL over NVLink (grad psum over dp/fsdp; tp shards the
+matmuls). The cards of one host are joined all to all, so the mesh shape
+follows the algorithm alone.
 
   dp    pure data parallel (batch axis)
   fsdp  param/optimizer sharding axis (ZeRO-equivalent); batch is also

@@ -1,4 +1,4 @@
-"""pjit train-step factory — the TPU replacement for the reference's
+"""pjit train-step factory — the replacement for the reference's
 DeepSpeed engine loop (train_..._properties.py:270-284,555-556).
 
 One jitted function: forward (fused CE) → grad → optax update. Gradient
@@ -59,7 +59,7 @@ def cast_weights(params, dtype):
     jax.checkpoint those casts replay in the backward pass, re-reading the
     fp32 master weights from HBM. Pre-casting makes every in-body cast an
     identity, so forward + remat replay read bf16 — half the weight
-    bandwidth on the HBM-bound train step (PERF.md round-2 item 2).
+    bandwidth on the weight reads of the train step.
 
     Norm parameters (ln0/ln1/ln2/ln_x/ln_out scales+biases — stacked (L,C)
     so ndim>=2) are exempt: the model consumes them in fp32 inside

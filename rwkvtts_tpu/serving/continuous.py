@@ -11,9 +11,9 @@ allocation), so admitting a request is one `dynamic_update_slice` per
 state leaf.
 
 Throughput intuition: decode cost per step is nearly flat in occupied
-slots (the batch dim rides free until the state saturates HBM bandwidth —
-PERF.md batch scaling), so keeping slots full converts latency into
-throughput without per-request batching delays.
+slots while the step is bound by reading the weights (the batch dim rides
+free until the per-slot state traffic dominates), so keeping slots full
+converts latency into throughput without per-request batching delays.
 """
 from __future__ import annotations
 
@@ -52,12 +52,8 @@ def _insert_many(carry, hk, stk, slots, take, tvec, pvec, svec):
         slot = slots[j]
 
         def ins(cl, s):
-            # leaves whose leading dim is a multiple of the batch (e.g. the
-            # head-pair-packed wkv state, (B*H/2, N, 2N)) own `f` contiguous
-            # rows per request — slot j maps to rows [j*f, (j+1)*f)
-            f = s.shape[0] // hk.shape[0]
-            row = jax.lax.dynamic_slice_in_dim(s, j * f, f, axis=0)
-            idx = (slot * f,) + (jnp.int32(0),) * (cl.ndim - 1)
+            row = jax.lax.dynamic_slice_in_dim(s, j, 1, axis=0)
+            idx = (slot,) + (jnp.int32(0),) * (cl.ndim - 1)
             return jax.lax.dynamic_update_slice(cl, row.astype(cl.dtype), idx)
 
         h = ins(h, hk)
@@ -73,56 +69,11 @@ def _insert_many(carry, hk, stk, slots, take, tvec, pvec, svec):
 
 
 @functools.partial(jax.jit, donate_argnums=(0,))
-def _insert_many_mega(carry, hk, stk, slots, take, tvec, pvec, svec):
-    """`_insert_many` for the megakernel pool: the carry's WKV state rides
-    the kernel's TRANSPOSED layout (ops/decode_mega_b64.pack_mega_state_b64:
-    (L, P, 4096, 128) with row m = i*64+j and lane q = h*64 + slot), so a
-    request's state inserts as TWO lane columns (head-in-pair 0 and 1)
-    instead of contiguous rows. `stk` is the RAW stacked prefill state
-    (att_x (L,Bk,C), wkv (L,Bk,H,64,64), ffn_x) — no pack_decode_state."""
-
-    def body(j, c):
-        h, st, done, n, temp, topp, seed = c
-        slot = slots[j]
-        row = jax.lax.dynamic_slice_in_dim(hk, j, 1, axis=0)
-        h = jax.lax.dynamic_update_slice(h, row.astype(h.dtype), (slot, 0))
-
-        def ins_bc(cl, s):
-            r = jax.lax.dynamic_slice_in_dim(s, j, 1, axis=1)  # (L, 1, C)
-            return jax.lax.dynamic_update_slice(
-                cl, r.astype(cl.dtype), (0, slot, 0)
-            )
-
-        att_x = ins_bc(st["att_x"], stk["att_x"])
-        ffn_x = ins_bc(st["ffn_x"], stk["ffn_x"])
-        w = jax.lax.dynamic_slice_in_dim(stk["wkv"], j, 1, axis=1)
-        L, H = w.shape[0], w.shape[2]
-        w = w.reshape(L, H // 2, 2, 64, 64)     # (L, p, h, i, j)
-        w = jnp.transpose(w, (0, 1, 3, 4, 2))   # (L, p, i, j, h)
-        w = w.reshape(L, H // 2, 4096, 2).astype(st["wkv"].dtype)
-        wkv = jax.lax.dynamic_update_slice(
-            st["wkv"], w[..., 0:1], (0, 0, 0, slot)
-        )
-        wkv = jax.lax.dynamic_update_slice(
-            wkv, w[..., 1:2], (0, 0, 0, 64 + slot)
-        )
-        st = {"att_x": att_x, "wkv": wkv, "ffn_x": ffn_x}
-        done = done.at[slot].set(False)
-        n = n.at[slot].set(0)
-        temp = temp.at[slot].set(tvec[j])
-        topp = topp.at[slot].set(pvec[j])
-        seed = seed.at[slot].set(svec[j])
-        return (h, st, done, n, temp, topp, seed)
-
-    return jax.lax.fori_loop(0, take, body, carry)
-
-
-@functools.partial(jax.jit, donate_argnums=(0,))
 def _mark_done(carry, slot_mask):
     """Set the device-side done flag for retired slots. Without this a slot
     freed host-side by the max_new cap (no EOS sampled) keeps decoding
     discarded tokens every chunk until a new request lands in it — wasted
-    compute (ADVICE r2). One tiny program, amortized over the whole pool."""
+    compute. One tiny program, amortized over the whole pool."""
     h, st, done, n, temp, topp, seed = carry
     return (h, st, done | slot_mask, n, temp, topp, seed)
 
@@ -148,11 +99,9 @@ def _decode_chunk(params, carry, cfg, chunk: int, top_k: int):
     return carry, jnp.moveaxis(toks, 0, 1), carry[2]
 
 
-def _make_pool_step(params, cfg, top_k: int, mega=None, spec=None):
+def _make_pool_step(params, cfg, top_k: int):
     """One slot-pool decode step (head -> per-slot sampling -> EOS
-    bookkeeping -> backbone), shared by the XLA and megakernel chunk
-    programs so the seed-determinism/sampling semantics cannot drift
-    between the two pools."""
+    bookkeeping -> backbone)."""
     bb = cfg.backbone
     eos_id = cfg.eos_token_id
 
@@ -172,33 +121,10 @@ def _make_pool_step(params, cfg, top_k: int, mega=None, spec=None):
         tok = jnp.where(done, eos_id, tok)
         done = done | (tok == eos_id)
         x = spark.decode_embed(params, cfg, tok)
-        if mega is not None:
-            from rwkvtts_tpu.ops import decode_mega_b64 as dmb
-
-            h, st = dmb.decode_step_mega_b64(mega, bb, x, st, spec=spec)
-            h = h.astype(bb.dtype)
-        else:
-            h, st = rwkv7.decode_step(params, bb, x, st)
+        h, st = rwkv7.decode_step(params, bb, x, st)
         return (h, st, done, n + 1, temp, topp, seed), tok
 
     return step
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("cfg", "spec", "chunk", "top_k"),
-    donate_argnums=(2,),
-)
-def _decode_chunk_mega(params, mega, carry, cfg, spec, chunk: int, top_k: int):
-    """`_decode_chunk` with the backbone step routed through the B=64
-    whole-step megakernel (ops/decode_mega_b64): one pallas_call per token
-    streams the int8 weights with activations VMEM-resident — measured
-    2.6x the XLA chunk step at the 0.4B B=64 point (PERF.md r5). Embed /
-    head / per-slot sampling / EOS logic are the SAME code
-    (_make_pool_step)."""
-    step = _make_pool_step(params, cfg, top_k, mega=mega, spec=spec)
-    carry, toks = jax.lax.scan(step, carry, None, length=chunk)
-    return carry, jnp.moveaxis(toks, 0, 1), carry[2]
 
 
 class ContinuousBatcher:
@@ -225,34 +151,15 @@ class ContinuousBatcher:
         seed: int = 0,
         mesh: Optional[jax.sharding.Mesh] = None,
         overlap: bool = False,
-        megakernel: bool = False,
-        mega_tile_n: int = 512,
     ):
         self.cfg = cfg
         bb = cfg.backbone
         self.mesh = mesh
-        self.megakernel = megakernel
-        if megakernel:
-            from rwkvtts_tpu.ops import decode_mega_b64 as dmb
-
-            # the kernel's lane packing fixes the pool size (lane q =
-            # h*64 + slot); the int8 weight stream is single-device
-            if n_slots != dmb.B:
-                raise ValueError(
-                    f"megakernel pool requires n_slots={dmb.B}, got {n_slots}"
-                )
-            if mesh is not None:
-                raise ValueError(
-                    "megakernel pool is single-device (per-device "
-                    "pallas_call); drop --mesh or --mega"
-                )
-            self._mega = dmb.pack_mega_b64(params, bb, tile_n=mega_tile_n)
-            self._mega_spec = self._mega.pop("spec")
         if mesh is not None:
             # dp-sharded slot pool: the slot axis of every carry leaf is
             # split over the mesh's "dp" axis and params are replicated, so
-            # one chunk program decodes n_slots rows across the whole slice
-            # (the pod-scale version of this engine; the reference's
+            # one chunk program decodes n_slots rows across all the cards
+            # (the multi-card version of this engine; the reference's
             # thread-pool service has no multi-GPU story at all,
             # service/tts_service.py:14-120). Decode-step math is
             # batch-row-independent, so sharded output is bit-identical to
@@ -260,15 +167,6 @@ class ContinuousBatcher:
             if n_slots % mesh.shape["dp"] != 0:
                 raise ValueError(
                     f"n_slots={n_slots} not divisible by dp={mesh.shape['dp']}"
-                )
-            if getattr(bb, "decode_wkv_packed", False):
-                # the packed path is a per-device pallas_call; under a
-                # GSPMD-sharded carry it would force a full state gather
-                # every step (see ops/wkv7.resolve_impl's same rule for
-                # training) — serve multi-chip with the XLA step instead
-                raise ValueError(
-                    "decode_wkv_packed is single-device-only; disable it "
-                    "(launch.py --no-packed-wkv) when serving with dp>1"
                 )
             from jax.sharding import NamedSharding, PartitionSpec
 
@@ -280,11 +178,7 @@ class ContinuousBatcher:
         # stacked params for prefill (scan-over-layers forward), layered
         # views for the decode chunk (per-layer state leaves)
         self.params = params
-        # per-layer decode views materialize sliced copies — the mega pool
-        # never runs rwkv7.decode_step, so skip the extra HBM there
-        self.params_l = None if megakernel else rwkv7.layer_decode_views(
-            params, bb
-        )
+        self.params_l = rwkv7.layer_decode_views(params, bb)
         self.n_slots = n_slots
         self.chunk = chunk
         self.prompt_cap = prompt_cap
@@ -298,15 +192,10 @@ class ContinuousBatcher:
         self._slots = [_Slot() for _ in range(n_slots)]
 
         # prefill + pack_decode_state as ONE jitted program: the per-layer
-        # state split (and the packed-layout conversion) would otherwise
-        # run as ~6*L eager dispatches per admission — each a host<->device
-        # round trip on the remote-TPU serving path (CLAUDE.md)
+        # state split would otherwise run as ~3*L eager dispatches per
+        # admission
         def _prefill_packed(p, c, tokens, modality, mask):
             hk, st = spark.prefill(p, c, tokens, modality, mask)
-            if megakernel:
-                # the mega insert scatters raw rows into the transposed
-                # lane layout itself (_insert_many_mega)
-                return hk, st
             return hk, rwkv7.pack_decode_state(st, c.backbone)
 
         self._prefill = jax.jit(_prefill_packed, static_argnames=("c",))
@@ -320,7 +209,7 @@ class ContinuousBatcher:
         # (tests/test_continuous.py::test_overlap_matches_sequential).
         # Trade: requests finish one chunk later (latency) and a freed
         # slot idles one extra chunk (occupancy) — a win when the host
-        # sync is expensive relative to the chunk (remote-TPU serving).
+        # sync is expensive relative to the chunk.
         self.overlap = overlap
         # pending (tokens_on_device, owners-at-dispatch); owners can go
         # stale if a request finished meanwhile -> resolved via _active
@@ -342,13 +231,9 @@ class ContinuousBatcher:
 
     def _fresh_carry(self):
         bb = self.cfg.backbone
-        st = rwkv7.init_model_state(bb, self.n_slots)
-        if self.megakernel:
-            from rwkvtts_tpu.ops import decode_mega_b64 as dmb
-
-            st = dmb.pack_mega_state_b64(st, bb)
-        else:
-            st = rwkv7.pack_decode_state(st, bb)
+        st = rwkv7.pack_decode_state(
+            rwkv7.init_model_state(bb, self.n_slots), bb
+        )
         carry = (
             jnp.zeros((self.n_slots, bb.hidden_size), bb.dtype),
             st,
@@ -365,15 +250,11 @@ class ContinuousBatcher:
         return carry
 
     def _insert(self, hk, stk, slots, take, tvec, pvec, svec):
-        fn = _insert_many_mega if self.megakernel else _insert_many
-        return fn(self._carry, hk, stk, slots, take, tvec, pvec, svec)
+        return _insert_many(
+            self._carry, hk, stk, slots, take, tvec, pvec, svec
+        )
 
     def _chunk(self):
-        if self.megakernel:
-            return _decode_chunk_mega(
-                self.params, self._mega, self._carry, self.cfg,
-                self._mega_spec, self.chunk, self.top_k,
-            )
         return _decode_chunk(
             self.params_l, self._carry, self.cfg, self.chunk, self.top_k
         )
@@ -461,7 +342,7 @@ class ContinuousBatcher:
     def _admit(self):
         """Admit as many queued requests as there are free slots with ONE
         batched prefill (a per-request B=1 prefill costs a full host->
-        device dispatch each — measured 6x slower end-to-end)."""
+        device dispatch each)."""
         free = [i for i, s in enumerate(self._slots) if s.req_id is None]
         if not free or not self._queue:
             return

@@ -8,7 +8,7 @@ CosyVoice LM (RAS sampling, per-row min-length EOS suppression) — and each
 stream's tokens feed its own incremental-state vocoder session
 (infer/streaming.CosyStreamSession, O(1) per hop). Decode cost per step is
 nearly flat in occupied slots, so concurrent streams ride almost free until
-the state saturates HBM (PERF.md batch scaling).
+the per-slot state traffic dominates the step.
 
 Row purity: each row's sampling key is fold_in(PRNGKey(its seed), its own
 step index), so a (prompt, seed) stream reproduces exactly no matter what
@@ -53,9 +53,8 @@ def _insert_many(carry, hk, stk, recent0, slots, take, minvec, svec):
         slot = slots[j]
 
         def ins(cl, s):
-            f = s.shape[0] // hk.shape[0]
-            row = jax.lax.dynamic_slice_in_dim(s, j * f, f, axis=0)
-            idx = (slot * f,) + (jnp.int32(0),) * (cl.ndim - 1)
+            row = jax.lax.dynamic_slice_in_dim(s, j, 1, axis=0)
+            idx = (slot,) + (jnp.int32(0),) * (cl.ndim - 1)
             return jax.lax.dynamic_update_slice(cl, row.astype(cl.dtype), idx)
 
         h = ins(h, hk)
@@ -393,8 +392,7 @@ class CosyStreamHub:
         # admitted stream still awaits its FIRST chunk. The pool decodes
         # all slots in lockstep, so every first hop becomes ready at once
         # — without this, early streams' hop-2+ vocodes queue AHEAD of
-        # late streams' first chunks (measured: pooled TTFA p50 1243 ms
-        # vs 554 solo at 8x1.5B, PERF.md r4f). Steady streams hold >=
+        # late streams' first chunks. Steady streams hold >=
         # one hop of audio, so a bounded defer cannot underrun playback.
         self.first_chunk_priority = first_chunk_priority
         self._first_pending: set = set()
@@ -404,7 +402,7 @@ class CosyStreamHub:
         # ctx window, vocode_every hop batching — apply per SESSION, so
         # without this every pooled stream paid the CFM-10/ctx-100/
         # vocode-1 defaults while solo streaming ran SFM-5/ctx-50/
-        # vocode-2 (0.213 -> 0.134 RTF, PERF.md r4). Per-call
+        # vocode-2. Per-call
         # `stream_cfg` overrides; `hop_tokens` overrides the hop only.
         self.stream_cfg = stream_cfg
         self.batcher = CosyPoolBatcher(

@@ -37,7 +37,7 @@ log = logging.getLogger("rwkvtts_tpu.serving")
 # save as a named speaker -> synthesize; plus zero-shot prompt upload and
 # the thin demo flow of gradio/tts_demo_page.py; no gradio dependency).
 DEMO_PAGE = """<!doctype html>
-<html><head><meta charset="utf-8"><title>RWKV TTS Studio (TPU)</title>
+<html><head><meta charset="utf-8"><title>RWKV TTS Studio</title>
 <style>
 body{font-family:system-ui;max-width:880px;margin:32px auto;padding:0 16px;color:#222}
 textarea{width:100%;height:90px;font-size:15px;box-sizing:border-box}
@@ -53,7 +53,7 @@ button.primary:disabled{background:#9ca3af}
 .row{display:flex;gap:16px;flex-wrap:wrap}
 .col{flex:1;min-width:320px}
 </style></head><body>
-<h2>RWKV TTS Studio — TPU service</h2>
+<h2>RWKV TTS Studio</h2>
 <textarea id="text" placeholder="Text to speak…">今天天气不错。</textarea>
 <div id="langinfo"></div>
 <div class="row"><div class="col">

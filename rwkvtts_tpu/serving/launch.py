@@ -19,9 +19,8 @@ log = logging.getLogger("rwkvtts_tpu")
 
 
 def build_pipeline(ckpt: str, codec_dir: Optional[str] = None,
-                   packed_wkv: bool = True, int8: bool = False,
-                   int4: bool = False, state_bf16: bool = False,
-                   fuse_projections: bool = True):
+                   int8: bool = False, int4: bool = False,
+                   state_bf16: bool = False):
     import jax.numpy as jnp
 
     from rwkvtts_tpu.convert import rwkv7_ckpt, speech_init
@@ -36,12 +35,7 @@ def build_pipeline(ckpt: str, codec_dir: Optional[str] = None,
         # head_size from the ckpt too: a 128-wide-head model would
         # otherwise silently mis-group (B,T,H,N) reshapes at serve time
         head_size=kw["head_size"],
-        # head-pair-packed decode state: the slot pool runs ~96 rows where
-        # the in-place Pallas step beats the XLA step (PERF.md round 3:
-        # 5164 vs 5017 sustained mixed, and same-voice 5629 vs 4549)
-        decode_wkv_packed=packed_wkv,
-        # bf16 decode-state carry (exclusive with the packed state):
-        # halves the pool's state HBM bytes; see PERF.md for the regime
+        # bf16 decode-state carry: halves the pool's state bytes
         decode_state_bf16=state_bf16,
     )
     params = speech_init.spark_from_pretrained_sd(sd, cfg)
@@ -60,7 +54,7 @@ def build_pipeline(ckpt: str, codec_dir: Optional[str] = None,
     tok = get_world_tokenizer(n_spct=48)
     return SparkPipeline(
         cfg, params, tok, audio_tokenizer=codec, quantize_int8=int8,
-        quantize_int4=int4, fuse_projections=fuse_projections,
+        quantize_int4=int4,
     )
 
 
@@ -78,7 +72,6 @@ def build_service(
     warmup_widths=None,
     dp: int = 1,
     overlap: bool = False,
-    megakernel: bool = False,
 ):
     from rwkvtts_tpu.serving import service as svc
 
@@ -89,7 +82,6 @@ def build_service(
             max_new_tokens=max_new_tokens, top_k=top_k, top_p=top_p,
             temperature=temperature, warmup=warmup,
             warmup_widths=warmup_widths, dp=dp, overlap=overlap,
-            megakernel=megakernel,
         )
     return svc.BatchedTTSService(
         pipeline, speakers, max_new_tokens=max_new_tokens
@@ -175,28 +167,18 @@ def main(argv=None):
     ap.add_argument("--demo-dir", default=None, help="demos/<speaker>/*.wav library")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)
-    # slot-pool sweep at 0.4B (PERF.md round 3): 48 -> 3.4k, 64 -> 4.1k,
-    # 96 -> 5.2k, 128 -> 3.9k sustained mixed-voice tok/s — 96 is the peak
     ap.add_argument("--n-slots", type=int, default=96)
-    # 32-step chunks are what the pool-size curve above was measured with;
     # 16 halves worst-case admission latency at some throughput cost
     ap.add_argument("--chunk", type=int, default=32)
-    ap.add_argument("--no-packed-wkv", action="store_true",
-                    help="XLA decode state instead of the packed Pallas "
-                         "step (packed wins at the 96-slot default)")
-    ap.add_argument("--mega", action="store_true",
-                    help="(spark) B=64 whole-step decode megakernel pool "
-                         "(int8 weight stream; forces 64 slots, "
-                         "single-device)")
     ap.add_argument("--int8", action="store_true",
-                    help="int8 decode weights (zero measured greedy flips; "
-                         "PERF.md round 3)")
+                    help="int8 decode weights (quality probe: "
+                         "scripts/measure_int8_quality.py)")
     ap.add_argument("--int4", action="store_true",
                     help="int4 group-wise decode weights (quality probe: "
                          "scripts/measure_int8_quality.py --int4)")
     ap.add_argument("--state-bf16", action="store_true",
-                    help="bf16 decode-state carry (requires "
-                         "--no-packed-wkv; memorized-decode CI-bounded)")
+                    help="bf16 decode-state carry (memorized-decode "
+                         "CI-bounded)")
     ap.add_argument("--max-new-tokens", type=int, default=1024)
     # family-resolved defaults: spark 50/0.95 (simple_generate.py:46-56),
     # cosy RAS 25/0.8 (cosy_llm.py:169-177)
@@ -207,7 +189,7 @@ def main(argv=None):
                     help="legacy same-voice grouping dispatcher")
     ap.add_argument("--dp", type=int, default=1,
                     help="shard the slot pool over a dp device mesh "
-                         "(multi-chip slice serving; n-slots must divide)")
+                         "(multi-card serving; n-slots must divide)")
     ap.add_argument("--overlap", action="store_true",
                     help="double-buffered chunks: dispatch N+1 before "
                          "syncing N (token-identical; hides host sync)")
@@ -231,18 +213,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
-    packed = not args.no_packed_wkv
-    if args.dp > 1 and packed:
-        # the packed Pallas step is per-device; a dp-sharded pool must use
-        # the XLA step (ContinuousBatcher raises on the combination)
-        log.info("dp>1: disabling the packed decode state (single-device-only)")
-        packed = False
+    from rwkvtts_tpu.utils import jit_cache
+
+    jit_cache.enable()
     if args.family == "cosy":
-        if args.mega:
-            # the B=64 megakernel pool is a spark-family engine; the cosy
-            # streaming hub runs an 8-slot pool — fail loudly rather than
-            # silently serving the XLA hub under a --mega flag
-            raise SystemExit("--mega is spark-family only (64-slot pool)")
         from rwkvtts_tpu.serving import http_server, service as svc
 
         pipeline = build_cosy_pipeline(
@@ -279,27 +253,13 @@ def main(argv=None):
         )
         http_server.serve(tts, args.host, args.port)
         return
-    n_slots = args.n_slots
-    if args.mega:
-        if args.dp > 1 or args.grouped:
-            raise SystemExit("--mega is single-device continuous-only")
-        if packed:
-            # the mega pool never runs the packed Pallas decode_step;
-            # keep the config honest
-            packed = False
-        if n_slots != 64:
-            log.info("--mega: forcing n_slots=64 (kernel lane packing)")
-            n_slots = 64
     pipeline = build_pipeline(
-        args.ckpt, args.codec_dir, packed_wkv=packed, int8=args.int8,
-        int4=args.int4, state_bf16=args.state_bf16,
-        # the mega pool packs its own int8 stream; keeping the fused
-        # decode pair would strand ~1.3 GB of dead HBM at 1.4B
-        fuse_projections=not args.mega,
+        args.ckpt, args.codec_dir, int8=args.int8, int4=args.int4,
+        state_bf16=args.state_bf16,
     )
     tts = build_service(
         pipeline, args.demo_dir, continuous=not args.grouped,
-        n_slots=n_slots, chunk=args.chunk,
+        n_slots=args.n_slots, chunk=args.chunk,
         max_new_tokens=args.max_new_tokens,
         top_k=args.top_k if args.top_k is not None else 50,
         top_p=args.top_p if args.top_p is not None else 0.95,
@@ -309,7 +269,7 @@ def main(argv=None):
             [int(w) for w in args.warmup_widths.split(",")]
             if args.warmup_widths else None
         ),
-        dp=args.dp, overlap=args.overlap, megakernel=args.mega,
+        dp=args.dp, overlap=args.overlap,
     )
     from rwkvtts_tpu.serving import http_server
 

@@ -6,10 +6,10 @@ Reference parity (/root/reference/service/):
     audio (base64 wav)? , speaker?}, wav response; /api/speakers lists the
     demo prompt library (demos/<speaker>/*.wav)
 
-TPU-first redesign (SURVEY.md §7.12): instead of a thread per engine, one
+Redesign (SURVEY.md §7.12): instead of a thread per engine, one
 dispatcher thread groups queued requests that share a speaker/voice into a
-single batched decode call — RWKV decode throughput scales with batch on
-the MXU, so batching is the serving win.
+single batched decode call — RWKV decode throughput scales with batch,
+so batching is the serving win.
 """
 from __future__ import annotations
 
@@ -280,7 +280,7 @@ class BatchedTTSService:
 
 class ContinuousTTSService(BatchedTTSService):
     """The production serving path: every /api/rwkv_tts request is admitted
-    into a ContinuousBatcher slot (VERDICT r2 #4).
+    into a ContinuousBatcher slot.
 
     Unlike the grouped dispatcher above — which can only batch requests
     that share a voice, leaving the decode program under-occupied on mixed
@@ -316,15 +316,13 @@ class ContinuousTTSService(BatchedTTSService):
         warmup_widths=None,  # prompt widths to precompile (default: prompt_cap)
         dp: int = 1,
         overlap: bool = False,
-        megakernel: bool = False,
-        mega_tile_n: int = 512,
     ):
         from rwkvtts_tpu.serving.continuous import ContinuousBatcher
 
         mesh = None
         if dp > 1:
             # shard the slot pool over a dp device mesh — one chunk program
-            # decodes all slots across the slice (bit-identical to the
+            # decodes all slots across the cards (bit-identical to the
             # single-device pool, tests/test_continuous.py)
             from rwkvtts_tpu.parallel import mesh as mesh_lib
 
@@ -333,7 +331,6 @@ class ContinuousTTSService(BatchedTTSService):
             pipeline.params, pipeline.cfg, n_slots=n_slots, chunk=chunk,
             prompt_cap=prompt_cap, temperature=temperature, top_k=top_k,
             top_p=top_p, seed=seed, mesh=mesh, overlap=overlap,
-            megakernel=megakernel, mega_tile_n=mega_tile_n,
         )
         if warmup:
             self.batcher.warmup(warmup_widths)

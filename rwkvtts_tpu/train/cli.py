@@ -8,7 +8,7 @@ one GSPMD-sharded trainer:
         --batch-size 8 --pad-to 2048 --run-dir runs/spark
 
 Tasks: spark | spark_properties | spark_global | cosy | xy | asr | s2s |
-tts_two_tower. Checkpoints rotate under <run-dir>/ckpt (orbax); metrics in
+tts_two_tower. Checkpoints rotate under <run-dir>/ckpt (numpy .npz); metrics in
 <run-dir>/metrics.jsonl; --resume continues from the latest checkpoint
 including the mid-epoch data position.
 """
@@ -36,30 +36,10 @@ def build_model(task: str, args):
         head_size=args.head_size,
     )
     if getattr(args, "wkv_spans", None):
-        # two-level / sequence-parallel WKV (forces the XLA formulation;
-        # the --mesh sp=N path sets this to match the sharding)
+        # two-level / sequence-parallel WKV (the --mesh sp=N path sets
+        # this to match the sharding)
         kw["wkv_spans"] = args.wkv_spans
-    if jax.default_backend() == "tpu" and jax.device_count() == 1:
-        # measured train defaults at 0.4B (PERF.md round 3): replay skips
-        # the fwd WKV kernel, unrolled layers kill the scan-stacking
-        # copies, and the post-projection elementwise band (kk normalize,
-        # ln_x, bonus) runs inside the Pallas kernel pair —
-        # 1025 -> 865 -> 784 ms step (MFU 19.7 -> 25.8%). Overridable below.
-        kw.setdefault("remat_policy", getattr(args, "remat_policy", None) or "wkv")
-        kw.setdefault("layer_unroll", not getattr(args, "no_layer_unroll", False))
-        kw.setdefault(
-            "wkv_fuse_prep", not getattr(args, "no_wkv_fuse_prep", False)
-        )
-        # bf16 operands + fp32 accumulation inside the kernel pair — the
-        # reference CUDA kernel's own precision contract (wkv7_cuda.cu:3-8);
-        # measured 784 -> 770 ms at 0.4B with the fused-prep kernel
-        kw.setdefault("wkv_mm", getattr(args, "wkv_mm", None) or "bf16")
-        # group 16/16: with the saved-inverse backward solve the bwd
-        # kernel's VMEM no longer carries the Neumann adjoint, so the
-        # larger group fits and wins (658 -> 647 ms at 0.4B, PERF.md r3)
-        kw.setdefault("wkv_group", 16)
-        kw.setdefault("wkv_group_bwd", 16)
-    elif getattr(args, "remat_policy", None):
+    if getattr(args, "remat_policy", None):
         kw["remat_policy"] = args.remat_policy
     key = jax.random.PRNGKey(args.seed)
     if task.startswith("spark"):
@@ -80,7 +60,7 @@ def build_model(task: str, args):
     if task == "asr":
         from rwkvtts_tpu.models import asr
 
-        # the shared kw (head_size, wkv_spans, TPU kernel defaults) flows
+        # the shared kw (head_size, wkv_spans, remat policy) flows
         # into BOTH towers — --mesh sp=N must reach every wkv call or the
         # T-sharded chunk scan silently gathers cross-device (review r3)
         akw = {k: v for k, v in kw.items()
@@ -203,22 +183,15 @@ def main(argv=None):
     p.add_argument(
         "--low-memory-opt", choices=["mu_bf16", "adafactor"], default=None,
         help="shrink optimizer state for models whose fp32 Adam slots "
-             "exceed one chip (1.4B on 16 GB v5e); LR groups/schedule/"
+             "exceed one card's memory; LR groups/schedule/"
              "wd mask unchanged — see train/optimizer.py",
     )
     p.add_argument("--save-steps", type=int, default=1000)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--remat-policy", default=None,
-                   choices=["wkv", "dots", "dots_no_batch"],
-                   help="override the single-chip TPU default ('wkv')")
-    p.add_argument("--no-layer-unroll", action="store_true",
-                   help="keep the scanned layer loop (faster compiles)")
-    p.add_argument("--no-wkv-fuse-prep", action="store_true",
-                   help="keep the elementwise prep outside the WKV kernel")
-    p.add_argument("--wkv-mm", default=None, choices=["f32", "bf16"],
-                   help="kernel matmul operand dtype (single-chip TPU "
-                        "default: bf16, the reference CUDA contract)")
+                   choices=["dots", "dots_no_batch"],
+                   help="selective rematerialization (default: full replay)")
     p.add_argument("--mesh", default=None,
                    help="device-mesh shape, e.g. dp=2,fsdp=2 or dp=2,sp=4 "
                         "(default: all devices on dp). sp shards the TIME "
@@ -234,7 +207,7 @@ def main(argv=None):
     p.add_argument("--run-name", default=None)
     p.add_argument("--max-rows", type=int, default=None)
     p.add_argument("--multihost", action="store_true",
-                   help="call jax.distributed.initialize() for multi-host slices")
+                   help="call jax.distributed.initialize() for multi-host jobs")
     p.add_argument("--mark-phonemes-prob", type=float, default=0.0,
                    help="IPA-annotate text with this probability (spark_properties ipa-ft variant)")
     p.add_argument(
@@ -247,6 +220,10 @@ def main(argv=None):
     metrics_lib.setup_logging()
     if args.multihost:
         jax.distributed.initialize()
+    # after distributed init: enable() starts the backend
+    from rwkvtts_tpu.utils import jit_cache
+
+    jit_cache.enable()
     mesh_shape = None
     if args.mesh:
         mesh_shape = {
@@ -341,7 +318,7 @@ def main(argv=None):
         return
     if args.resume:
         tr.maybe_resume()
-    # preemptible-TPU safety: SIGTERM/SIGINT checkpoint mid-epoch position
+    # preemption safety: SIGTERM/SIGINT checkpoint mid-epoch position
     # and exit cleanly; relaunch with --resume to continue
     tr.install_preemption_handler()
     tr.fit(ds)

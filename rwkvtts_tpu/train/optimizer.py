@@ -80,9 +80,10 @@ def build_optimizer(
     ``low_memory`` swaps the moment estimator while keeping the LR groups,
     schedule, and weight-decay mask identical — the single-host answer to
     the reference's ZeRO-3 CPU-offload for its 1.5B LM
-    (train_..._properties.py:377-387); on a pod the first choice is fsdp
-    sharding (parallel/mesh.py), but one 16 GB chip cannot hold fp32 Adam
-    state for 1.4B params (5.7+11.4 GB):
+    (train_..._properties.py:377-387); on several cards the first choice
+    is fsdp sharding (parallel/mesh.py), but one card may not hold fp32
+    Adam state beside the rest (1.4B params: 5.7 GB weights + 11.4 GB
+    moments):
       * "mu_bf16":   first moment stored bf16 (halves mu memory; update
                      math still fp32 — optax casts per-step)
       * "adafactor": factored second moment, no first moment

@@ -1,7 +1,7 @@
 """Generic training orchestration: jitted GSPMD step + data + checkpoints.
 
-The TPU replacement for the reference's 21 per-engine DeepSpeed scripts
-(SURVEY.md §2.6): one Trainer, per-task loss adapters, orbax rotation,
+The replacement for the reference's 21 per-engine DeepSpeed scripts
+(SURVEY.md §2.6): one Trainer, per-task loss adapters, checkpoint rotation,
 metrics, warm-start and (new) mid-epoch resume.
 """
 from __future__ import annotations
@@ -126,7 +126,7 @@ class TrainerConfig:
     weight_decay: float = 0.01
     grad_clip: float = 1.0
     # None | "mu_bf16" | "adafactor" — low-memory optimizer state for
-    # models whose fp32 Adam state exceeds one chip (see train/optimizer.py)
+    # models whose fp32 Adam state exceeds one card (see train/optimizer.py)
     low_memory_opt: Optional[str] = None
     seed: int = 0
     wandb_project: Optional[str] = None
@@ -217,7 +217,7 @@ class Trainer:
         log.info("saved checkpoint at step %d", step)
 
     def install_preemption_handler(self, signals=None):
-        """Preemption-safe training: SIGTERM/SIGINT (the signals TPU pool
+        """Preemption-safe training: SIGTERM/SIGINT (the signals spot
         reclaims and schedulers deliver) request a checkpoint at the next
         step boundary, then fit() returns cleanly — resume with --resume.
         The reference has no preemption story at all (SURVEY §5: its fault

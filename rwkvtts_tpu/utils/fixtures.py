@@ -2,8 +2,7 @@
 
 Golden fixtures (tests/goldens/*.npz) carry torch-derived weights, inputs,
 and reference outputs captured once by scripts/capture_goldens_torch.py so
-CI can replay reference-pipeline parity with NO torch import at test time
-(round-3 VERDICT missing #1).
+CI can replay reference-pipeline parity with NO torch import at test time.
 
 A tree is any nesting of dict / list / tuple with array leaves. Paths join
 keys with '/'; list indices are decimal strings. On load, a dict whose keys

@@ -1,10 +1,5 @@
-"""Decompose the streaming vocoder costs (the r5c profile's binders).
-
-The r5c per-hop profile at deployed 1.5B (mega LM, SFM-5, ctx 50,
-vocode_every 2) measured: lm 135.5 ms x9 | flow 64.5 ms x8 | hift ~97 ms
-x5 — the LM is within ~25% of its kernel floor, so the <=0.1 steady-RTF
-gap now lives in the per-call flow/HiFT costs (non-streaming equivalents:
-flow ~15.7 ms/s, hift ~7.1 ms/s — PERF.md r3 e2e row).
+"""Decompose the streaming vocoder costs: per-call flow and HiFT cost
+against their non-streaming equivalents.
 
 This probe isolates, on the REAL production-size flow/HiFT configs:
   * flow hop cost vs n_timesteps (1/3/5), ctx (0/25/50), hop (50/100)

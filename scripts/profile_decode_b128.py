@@ -1,60 +1,24 @@
-"""Profile the batched decode step: per-op self-times from a device trace.
+"""Profile the batched Spark decode: step time and per-op device times
+from a profiler trace (utils/profiling.device_op_times).
 
-Original use: the B=128-regression question at 0.4B (PERF.md round 3).
-Round 4 (VERDICT #8): --hidden/--layers/--batch/--packed-wkv/--int8/
---state-bf16 profile the 1.4B B=64 point to locate the gap between the
-11.7 ms fused step and the ~5.5-7.3 ms HBM roofline before any megakernel
-work — state copies vs weight streaming vs elementwise band vs dispatch.
+    python scripts/profile_decode_b128.py --batches 64 --state-bf16 --decode-only
+
+--hidden/--layers/--batch/--int8/--state-bf16/--no-proj-fuse choose the
+point; traces land under chiprun_out/traces/ in the checkout.
 """
 from __future__ import annotations
 
-import collections
-import glob
-import gzip
-import json
 import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, _ROOT)
 
-import jax
-import jax.numpy as jnp
-import numpy as np
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
-from rwkvtts_tpu.utils import jit_cache
-
-jit_cache.enable()
-
-
-def self_times(trace_dir, top=15):
-    files = sorted(
-        glob.glob(os.path.join(trace_dir, "**", "*.trace.json.gz"), recursive=True),
-        key=os.path.getmtime,
-    )
-    with gzip.open(files[-1], "rt") as f:
-        tr = json.load(f)
-    ev = tr["traceEvents"]
-    names = {}
-    for e in ev:
-        if e.get("ph") == "M" and e.get("name") == "thread_name":
-            names[(e["pid"], e["tid"])] = e["args"]["name"]
-    ops = [e for e in ev if e.get("ph") == "X"
-           and names.get((e.get("pid"), e.get("tid"))) == "XLA Ops"]
-    ops.sort(key=lambda e: (e["ts"], -e["dur"]))
-    stack, self_t = [], collections.Counter()
-    for e in ops:
-        ts, dur = e["ts"], e["dur"]
-        while stack and ts >= stack[-1][0] + stack[-1][1]:
-            stack.pop()
-        if stack:
-            self_t[stack[-1][2].split(".")[0]] -= dur / 1e3
-        self_t[e["name"].split(".")[0]] += dur / 1e3
-        stack.append((ts, dur, e["name"]))
-    total = sum(self_t.values())
-    print(f"  device total {total:.2f} ms")
-    for nm, ms in self_t.most_common(top):
-        print(f"  {ms:8.3f} ms {100*ms/total:5.1f}%  {nm}")
+from rwkvtts_tpu.utils import chip_checks, jit_cache, profiling  # noqa: E402
 
 
 def main():
@@ -67,7 +31,6 @@ def main():
     ap.add_argument("--hidden", type=int, default=1024)
     ap.add_argument("--layers", type=int, default=24)
     ap.add_argument("--batches", default="64,128")
-    ap.add_argument("--packed-wkv", action="store_true")
     ap.add_argument("--int8", action="store_true")
     ap.add_argument("--state-bf16", action="store_true")
     ap.add_argument("--no-proj-fuse", action="store_true")
@@ -75,12 +38,15 @@ def main():
                     help="trace a post-prefill spark_decode_chunk instead of "
                     "the whole generate: the full-generate trace includes the "
                     "remat-scoped prefill ops ('checkpoint'/'copy' bands), "
-                    "which polluted the r4e B=64 attribution")
+                    "which blur the decode attribution")
     args = ap.parse_args()
+    chip_checks.require_gpu()
+    jit_cache.enable()
+    print(chip_checks.smi_line(), flush=True)
 
     cfg = spark.default_config(
         hidden_size=args.hidden, num_layers=args.layers,
-        decode_wkv_packed=args.packed_wkv, decode_state_bf16=args.state_bf16,
+        decode_state_bf16=args.state_bf16,
     )
     params = spark.init_params(jax.random.PRNGKey(0), cfg)
     params = jax.tree.map(
@@ -111,10 +77,10 @@ def main():
 
             carry = gen.spark_prefill_carry(params, cfg, tokens, modality, mask)
             carry, t0ks = chunk(carry, jax.random.PRNGKey(2))  # compile+warm
-            np.asarray(t0ks)
+            jax.block_until_ready(t0ks)
             t0 = time.perf_counter()
             carry, t1ks = chunk(carry, jax.random.PRNGKey(3))
-            np.asarray(t1ks)
+            jax.block_until_ready(t1ks)
             dt = time.perf_counter() - t0
         else:
             def run(key):
@@ -124,27 +90,26 @@ def main():
                 )
                 return toks
 
-            np.asarray(run(jax.random.PRNGKey(2)))
+            jax.block_until_ready(run(jax.random.PRNGKey(2)))
             t0 = time.perf_counter()
-            np.asarray(run(jax.random.PRNGKey(3)))
+            jax.block_until_ready(run(jax.random.PRNGKey(3)))
             dt = time.perf_counter() - t0
         print(f"B={B}: {dt*1e3/64:.2f} ms/step", flush=True)
-        out_dir = (
-            f"/tmp/dec_trace_h{args.hidden}_b{B}"
-            + ("_pk" if args.packed_wkv else "")
-            + ("_q8" if args.int8 else "")
+        out_dir = os.path.join(
+            _ROOT, "chiprun_out", "traces", f"decode_h{args.hidden}_b{B}"
+        ) + (
+            ("_q8" if args.int8 else "")
             + ("_sb" if args.state_bf16 else "")
             + ("_nf" if args.no_proj_fuse else "")
             + ("_do" if args.decode_only else "")
         )
-        jax.profiler.start_trace(out_dir)
-        if args.decode_only:
-            carry, tks = chunk(carry, jax.random.PRNGKey(4))
-            np.asarray(tks)
-        else:
-            np.asarray(run(jax.random.PRNGKey(4)))
-        jax.profiler.stop_trace()
-        self_times(out_dir)
+        with profiling.trace(out_dir):
+            if args.decode_only:
+                carry, tks = chunk(carry, jax.random.PRNGKey(4))
+                jax.block_until_ready(tks)
+            else:
+                jax.block_until_ready(run(jax.random.PRNGKey(4)))
+        profiling.print_device_ops(out_dir)
 
 
 if __name__ == "__main__":

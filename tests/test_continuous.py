@@ -3,6 +3,7 @@ isolated greedy generate produces, across admissions/evictions."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from rwkvtts_tpu.data import spark_collator
 from rwkvtts_tpu.infer import generate as gen
@@ -165,18 +166,22 @@ def test_capped_slot_sets_device_done_flag():
     assert done.all(), f"capped slot left done=False: {done}"
 
 
-def test_continuous_packed_wkv_matches_isolated_greedy():
-    """Same slot-pool parity with cfg.decode_wkv_packed: the wkv leaves ride
-    the head-pair-packed (P, N, 2N) layout, so _insert_many must map request
-    rows to slot rows with the H/2 leading-dim factor."""
+@pytest.mark.parametrize("state_bf16", [False, True], ids=["fp32", "bf16"])
+def test_continuous_state_carry_matches_isolated_greedy(state_bf16):
+    """Slot-pool parity for each decode-state carry: per-layer (L-tuple)
+    wkv leaves, fp32 or bf16 (cfg.decode_state_bf16). Weights with the
+    zero-initialized matrices filled, so the recurrence shapes every
+    token."""
+    from rwkvtts_tpu.utils import chip_checks
+
     cfg = spark.default_config(
         hidden_size=64, num_layers=2, head_size=16, gate_lora=16,
         dtype=jnp.float32, wkv_chunk=16, remat=False, dropout=0.0,
-        decode_wkv_packed=True,
+        decode_state_bf16=state_bf16,
     )
-    params = spark.init_params(jax.random.PRNGKey(0), cfg)
+    params = chip_checks.spark_params(cfg, bf16_tables=False)
     tok = FakeTok()
-    texts = [f"packed req {i}" for i in range(4)]
+    texts = [f"carry req {i}" for i in range(4)]
     max_new = 10
 
     expected = {}
@@ -191,12 +196,14 @@ def test_continuous_packed_wkv_matches_isolated_greedy():
         expected[i] = np.asarray(toks)[0, :n].tolist()[:max_new]
 
     cb = ContinuousBatcher(params, cfg, n_slots=2, chunk=4, prompt_cap=32, top_k=1)
+    wkv_dtypes = {st["wkv"].dtype for st in cb._carry[1]}
+    assert wkv_dtypes == {jnp.dtype(jnp.bfloat16 if state_bf16 else jnp.float32)}
     rids = {cb.add_request(_prompt(t, tok), max_new): i for i, t in enumerate(texts)}
     out = cb.drain()
     assert len(out) == 4
     for rid, toks in out.items():
         assert toks == expected[rids[rid]], (
-            f"packed slot decode diverged for request {rids[rid]}"
+            f"slot decode diverged for request {rids[rid]}"
         )
 
 
@@ -303,104 +310,28 @@ def test_seed_determinism_across_pool_mixes():
     assert run(n_slots=2, chunk=4, others=0, seed=124) != alone
 
 
-def test_mega_insert_matches_full_pack():
-    """_insert_many_mega's per-request lane scatter must reproduce
-    pack_mega_state_b64's full-batch transpose exactly: insert all 64 rows
-    of a random raw state one slot at a time into a fresh mega carry and
-    compare against packing the whole batch at once."""
-    import jax.numpy as jnp
+def test_dp_pool_first_step_matches_single_pool():
+    """The --four comparison's helper on the virtual mesh: a dp=4 slot
+    pool's first-step logits and tokens equal the one-device pool's."""
+    from rwkvtts_tpu.parallel import mesh as mesh_lib
+    from rwkvtts_tpu.utils import chip_checks
 
-    from rwkvtts_tpu.models import rwkv7
-    from rwkvtts_tpu.ops import decode_mega_b64 as dmb
-    from rwkvtts_tpu.serving import continuous as cont
-
-    # hidden 256 -> H=4 heads, P=2 pairs: a P=1 config cannot distinguish
-    # the head-pair split (head = 2p+h vs strided) between the two layouts
     cfg = spark.default_config(
-        hidden_size=256, num_layers=2, dtype=jnp.float32,
+        hidden_size=32, num_layers=2, head_size=8, gate_lora=8,
         wkv_chunk=16, remat=False, dropout=0.0,
     )
-    bb = cfg.backbone
-    k = jax.random.PRNGKey(3)
-    ks = jax.random.split(k, 4)
-    raw = {
-        "att_x": jax.random.normal(ks[0], (2, 64, 256), jnp.float32),
-        "wkv": jax.random.normal(ks[1], (2, 64, 4, 64, 64), jnp.float32),
-        "ffn_x": jax.random.normal(ks[2], (2, 64, 256), jnp.float32),
-    }
-    hk = jax.random.normal(ks[3], (64, 256), jnp.float32)
-
-    expected = dmb.pack_mega_state_b64(raw, bb)
-
-    fresh = dmb.pack_mega_state_b64(rwkv7.init_model_state(bb, 64), bb)
-    carry = (
-        jnp.zeros((64, 256), jnp.float32),
-        fresh,
-        jnp.ones((64,), bool),
-        jnp.zeros((64,), jnp.int32),
-        jnp.ones((64,), jnp.float32),
-        jnp.ones((64,), jnp.float32),
-        jnp.zeros((64,), jnp.int32),
+    params = chip_checks.spark_params(cfg)
+    tokens, modality, mask = chip_checks.spark_prompts(8, 16, seed=5)
+    prompts = [
+        {"tokens": np.asarray(tokens[i:i + 1]),
+         "modality": np.asarray(modality[i:i + 1]),
+         "attention_mask": np.asarray(mask[i:i + 1])}
+        for i in range(8)
+    ]
+    one_logits, one_toks = chip_checks.pool_first_step(params, cfg, prompts, 8)
+    dp_logits, dp_toks = chip_checks.pool_first_step(
+        params, cfg, prompts, 8, mesh=mesh_lib.make_mesh(dp=4)
     )
-    # shuffled slot order: slot assignment must not depend on insert order
-    order = np.random.RandomState(0).permutation(64).astype(np.int32)
-    carry = cont._insert_many_mega(
-        carry, hk[order], jax.tree.map(lambda x: x[:, order], raw),
-        order, np.int32(64),
-        np.ones((64,), np.float32), np.ones((64,), np.float32),
-        np.zeros((64,), np.int32),
-    )
-    h, st, done = carry[0], carry[1], carry[2]
-    np.testing.assert_array_equal(np.asarray(h), np.asarray(hk))
-    assert not np.asarray(done).any()
-    for leaf in ("att_x", "wkv", "ffn_x"):
-        np.testing.assert_array_equal(
-            np.asarray(st[leaf]), np.asarray(expected[leaf]), err_msg=leaf
-        )
-
-
-def test_mega_pool_matches_mega_generate():
-    """The megakernel-backed pool (ContinuousBatcher(megakernel=True))
-    produces exactly the tokens spark_generate_mega_b64 produces for the
-    same 64 prompts under greedy decoding — admission scatter, chunked
-    scan, and per-slot EOS/done handling included."""
-    cfg = spark.default_config(
-        hidden_size=128, num_layers=2, dtype=jnp.float32,
-        wkv_chunk=16, remat=False, dropout=0.0,
-    )
-    params = spark.init_params(jax.random.PRNGKey(0), cfg)
-    tok = FakeTok()
-    max_new = 6
-    texts = [f"mega pool request {i}" for i in range(64)]
-    pbs = [_prompt(t, tok) for t in texts]
-
-    from rwkvtts_tpu.infer.generate import spark_generate_mega_b64
-    from rwkvtts_tpu.ops import decode_mega_b64 as dmb
-    from rwkvtts_tpu.serving import pool_common
-
-    stacked = pool_common.stack_admission(
-        [pool_common.pad_prompt(b, 32) for b in pbs]
-    )
-    mega = dmb.pack_mega_b64(params, cfg.backbone, tile_n=128)
-    spec = mega.pop("spec")
-    toks, lengths = spark_generate_mega_b64(
-        params, mega, spec, cfg,
-        jnp.asarray(stacked["tokens"]), jnp.asarray(stacked["modality"]),
-        jnp.asarray(stacked["attention_mask"]), jax.random.PRNGKey(9),
-        max_new_tokens=max_new, top_k=1, top_p=1.0,
-    )
-    toks, lengths = np.asarray(toks), np.asarray(lengths)
-    expected = {
-        i: toks[i, : min(int(lengths[i]), max_new)].tolist()
-        for i in range(64)
-    }
-
-    cb = ContinuousBatcher(
-        params, cfg, n_slots=64, chunk=3, prompt_cap=32, top_k=1,
-        megakernel=True, mega_tile_n=128,
-    )
-    rids = {cb.add_request(pbs[i], max_new): i for i in range(64)}
-    out = cb.drain()
-    assert cb.idle()
-    got = {rids[r]: v for r, v in out.items()}
-    assert got == expected
+    assert one_logits.shape == (8, cfg.backbone.vocab_size)
+    np.testing.assert_allclose(dp_logits, one_logits, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(dp_toks, one_toks)

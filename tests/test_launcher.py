@@ -35,7 +35,7 @@ def test_launcher_boot_and_serve(ckpt, monkeypatch):
         "rwkvtts_tpu.utils.tokenizer.get_world_tokenizer",
         lambda n_spct=0: Tok(),
     )
-    pipe = launch.build_pipeline(ckpt, packed_wkv=False, state_bf16=True)
+    pipe = launch.build_pipeline(ckpt, state_bf16=True)
     assert pipe.cfg.backbone.decode_state_bf16
     tts = launch.build_service(
         pipe, continuous=True, n_slots=2, chunk=8, max_new_tokens=16,
@@ -62,14 +62,18 @@ def test_launcher_packed_bf16_combo(ckpt, monkeypatch):
         "rwkvtts_tpu.utils.tokenizer.get_world_tokenizer",
         lambda n_spct=0: Tok(),
     )
-    # packed + bf16 state COMPOSE since round 4 (the packed step kernel
-    # preserves a bf16 carry): the service builds its slot carry with
-    # bf16 (P, N, 2N) wkv leaves instead of raising
-    pipe = launch.build_pipeline(ckpt, packed_wkv=True, state_bf16=True)
+    # --state-bf16: the service builds its slot carry with one bf16
+    # (n_slots, H, N, N) wkv leaf per layer (the plain layout; no head-pair
+    # packing)
+    pipe = launch.build_pipeline(ckpt, state_bf16=True)
+    bb = pipe.cfg.backbone
     tts = launch.build_service(pipe, continuous=True, n_slots=2, warmup=False)
     try:
-        st = tts.batcher._carry[1][0]["wkv"]
-        assert st.ndim == 3 and st.dtype == jnp.bfloat16
+        carry = tts.batcher._carry[1]
+        assert len(carry) == bb.num_layers
+        for st in carry:
+            assert st["wkv"].shape == (2, bb.num_heads, bb.head_size, bb.head_size)
+            assert st["wkv"].dtype == jnp.bfloat16
     finally:
         tts.close()
 

@@ -4,7 +4,6 @@ Greedy-equivalence between the parallel (chunked) forward and the sequential
 decode step is the model-level analogue of the reference's pure-Python
 RWKV_x070 forward_one/forward_seq consistency (rwkv_s2s_single_ffn.py:400-477).
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -157,65 +156,3 @@ def test_decode_state_pack_roundtrip(setup):
         np.testing.assert_array_equal(np.asarray(unpacked[k]), np.asarray(st[k]))
     # unpack on an already-stacked state is identity
     assert M.unpack_decode_state(st, cfg) is st
-
-
-def test_block_fuse_prep_matches_composed(monkeypatch):
-    """wkv_fuse_prep routes through the fused Pallas kernel (interpret on
-    CPU via a forced resolver) and must match the composed block math,
-    values AND grads, at the model level."""
-    import rwkvtts_tpu.ops.wkv7 as W
-
-    cfg = M.RWKV7Config(
-        vocab_size=64, hidden_size=32, num_layers=2, head_size=8,
-        dtype=jnp.float32,
-    )
-    cfg_f = dataclasses.replace(cfg, wkv_fuse_prep=True, wkv_chunk=16)
-    params = M.init_params(jax.random.PRNGKey(0), cfg)
-    ids = jax.random.randint(jax.random.PRNGKey(1), (2, 40), 0, 64)
-
-    def loss(p, c):
-        h = M.forward(p, c, ids)
-        return (M.logits(p, c, h).astype(jnp.float32) ** 2).mean()
-
-    l_ref, g_ref = jax.value_and_grad(loss)(params, cfg)
-    monkeypatch.setattr(W, "resolve_impl", lambda impl="auto": "pallas")
-    l_fused, g_fused = jax.value_and_grad(loss)(params, cfg_f)
-    np.testing.assert_allclose(l_fused, l_ref, rtol=1e-4, atol=1e-5)
-    jax.tree.map(
-        lambda a, b: np.testing.assert_allclose(a, b, rtol=5e-3, atol=1e-4),
-        g_fused, g_ref,
-    )
-
-
-def test_packed_wkv_decode_matches_unpacked(setup):
-    """decode with cfg.decode_wkv_packed (head-pair-packed (P, N, 2N) wkv
-    leaves through the Pallas step kernel / its XLA ref on CPU) matches the
-    standard per-layer decode exactly, and unpack_decode_state restores the
-    stacked layout."""
-    cfg, params = setup
-    B, T, T_dec = 2, 10, 5
-    ids = jax.random.randint(jax.random.PRNGKey(9), (B, T + T_dec), 0, cfg.vocab_size)
-
-    _, st0 = M.forward(params, cfg, input_ids=ids[:, :T], return_state=True)
-    pv = M.layer_decode_views(params, cfg)
-
-    st_ref = M.pack_decode_state(st0, cfg)
-    cfg_p = dataclasses.replace(cfg, decode_wkv_packed=True)
-    st_pk = M.pack_decode_state(st0, cfg_p)
-    assert all(s["wkv"].ndim == 3 for s in st_pk)
-    # idempotent + no-op passthrough on an already-packed tuple
-    assert M.pack_decode_state(st_pk, cfg_p) is st_pk
-
-    for t in range(T, T + T_dec):
-        x = M.embed(params, cfg, ids[:, t])
-        h_ref, st_ref = M.decode_step(pv, cfg, x, st_ref)
-        h_pk, st_pk = M.decode_step(pv, cfg_p, x, st_pk)
-        np.testing.assert_allclose(
-            np.asarray(h_pk), np.asarray(h_ref), rtol=2e-5, atol=2e-5
-        )
-
-    unk = M.unpack_decode_state(st_pk, cfg_p)
-    ref = M.unpack_decode_state(st_ref, cfg)
-    np.testing.assert_allclose(
-        np.asarray(unk["wkv"]), np.asarray(ref["wkv"]), rtol=2e-5, atol=2e-5
-    )

@@ -363,61 +363,3 @@ def test_continuous_service_http_level():
     for status, body in outs:
         assert status == 200
         assert body[:4] == b"RIFF" and len(body) > 44
-
-
-def test_continuous_service_megakernel_pool():
-    """The --mega serving path end-to-end at the service level: requests
-    admitted into the 64-slot megakernel pool synthesize with their own
-    voices (same contract as the XLA pool test above). Tiny mega-capable
-    config: head_size must be 64 and hidden a multiple of 128."""
-    import jax
-    import jax.numpy as jnp
-
-    from rwkvtts_tpu.infer.spark_pipeline import SparkPipeline
-    from rwkvtts_tpu.models import spark
-
-    class FakeTok:
-        def encode(self, text):
-            return [ord(c) % 200 + 1 for c in text][:12]
-
-    cfg = spark.default_config(
-        hidden_size=128, num_layers=2, dtype=jnp.float32,
-        wkv_chunk=16, remat=False, dropout=0.0,
-    )
-    params = spark.init_params(jax.random.PRNGKey(0), cfg)
-    pipe = SparkPipeline(cfg, params, FakeTok(), audio_tokenizer=TinyCodec())
-    lib = svc.SpeakerLibrary(None)
-    lib.register("alice", [5] * 4)
-    tts = svc.ContinuousTTSService(
-        pipe, lib, n_slots=64, chunk=2, prompt_cap=32, max_new_tokens=3,
-        top_k=1, megakernel=True, mega_tile_n=128,
-    )
-    reqs = [
-        svc.TTSRequest(text="one", speaker="alice"),
-        svc.TTSRequest(text="two", global_tokens=[9] * 4),
-    ]
-    results = [None] * len(reqs)
-
-    def call(i):
-        results[i] = tts.synthesize(reqs[i], timeout=300)
-
-    threads = [threading.Thread(target=call, args=(i,)) for i in range(len(reqs))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    tts.close()
-    for i, r in enumerate(results):
-        assert r is not None and r.error is None, (i, r and r.error)
-        assert len(r.wav) > 0
-    assert results[0].wav[0] == 5.0 and results[1].wav[0] == 9.0
-
-
-def test_launch_mega_guards():
-    """--mega rejects incompatible modes before touching the checkpoint."""
-    from rwkvtts_tpu.serving import launch
-
-    with pytest.raises(SystemExit):
-        launch.main(["--ckpt", "/nonexistent.pth", "--mega", "--dp", "2"])
-    with pytest.raises(SystemExit):
-        launch.main(["--ckpt", "/nonexistent.pth", "--mega", "--grouped"])

@@ -225,9 +225,8 @@ def test_pipeline_spec_rejects_quantized_verifier(setup):
 
 
 def test_spec_k_cap(setup):
-    """spec_k > 8 is fenced: the k=16 verify window OOMs 16 GB HBM at the
-    deployed 1.5B (chipq_s8.log) and k=8 already measured 0.40x plain
-    (PERF.md round 4)."""
+    """spec_k > 8 is fenced: the verify window keeps one full decode state
+    per position, so its memory grows with k."""
     from rwkvtts_tpu.infer.spark_pipeline import SparkPipeline
 
     cfg, params = setup

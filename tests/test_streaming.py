@@ -354,3 +354,46 @@ def test_lm_chunk_ramp_streams_complete_audio(pipe):
         assert n_ramp < n_fixed
     finally:
         streaming.gen.cosy_decode_chunk = orig
+
+
+def test_stream_session_tokens_match_offline_generate(pipe, monkeypatch):
+    """The streaming session's LM decode (XLA path, one chunk covering the
+    whole utterance) emits exactly the tokens offline cosy_generate emits
+    for the same prompt, key and min/max length."""
+    from rwkvtts_tpu.data import cosy_collator
+    from rwkvtts_tpu.data.spark_collator import pad_prompts_left
+
+    seen = []
+    orig = streaming.CosyStreamSession.emit_ready
+
+    def spy(self, tokens, lm_done):
+        seen.append(np.array(tokens))
+        return orig(self, tokens, lm_done)
+
+    monkeypatch.setattr(streaming.CosyStreamSession, "emit_ready", spy)
+    text, seed, n = "offline parity", 3, 32
+    scfg = streaming.StreamConfig(
+        token_hop_len=4, ctx_tokens=4, mel_cache_len=2, n_timesteps=2,
+        lm_chunk=n,
+    )
+    wav = np.concatenate(list(streaming.stream_synthesize(
+        pipe, text, stream_cfg=scfg, max_new_tokens=n, seed=seed,
+    )))
+    assert np.isfinite(wav).all()
+    streamed = seen[-1]
+
+    text_ids = pipe.tok.encode(text)
+    batch = pad_prompts_left([cosy_collator.build_prompt(text_ids, [])])
+    T = batch["tokens"].shape[1]
+    cap = ((T + 63) // 64) * 64
+    batch = {k: np.pad(np.asarray(v), ((0, 0), (cap - T, 0)))
+             for k, v in batch.items()}
+    content = cosy_collator.content_length(text_ids)
+    _, sub = jax.random.split(jax.random.PRNGKey(seed))
+    toks, lengths = gen.cosy_generate(
+        pipe.lm_params, pipe.lm_cfg, jnp.asarray(batch["tokens"]),
+        jnp.asarray(batch["modality"]), jnp.asarray(batch["attention_mask"]),
+        sub, max_new_tokens=n, min_new_tokens=int(content * 2),
+    )
+    n_off = min(int(np.asarray(lengths)[0]), int(content * 20), n)
+    np.testing.assert_array_equal(streamed, np.asarray(toks)[0, :n_off])

@@ -195,7 +195,7 @@ def test_low_memory_optimizer_steps(setup, mode):
 
 
 def test_preemption_checkpoint_and_resume(tmp_path):
-    """SIGTERM-style preemption (the TPU-pool reclaim path): the trainer
+    """SIGTERM-style preemption (the spot-reclaim path): the trainer
     checkpoints the mid-epoch position at the next step boundary, exits
     fit() cleanly, and --resume continues from the NEXT batch."""
     import os as _os
@@ -230,3 +230,38 @@ def test_preemption_checkpoint_and_resume(tmp_path):
     assert int(tr2.state.step) == saved_step
     final = tr2.fit(_dataset())
     assert int(final.step) == 4  # completes the epoch from the saved batch
+
+
+def test_checkpoint_npz_roundtrip_and_rotation(tmp_path):
+    """Checkpoints are numpy .npz + meta json: bf16, fp32 and int leaves
+    come back bit-exact in their dtypes, sharded leaves keep the sharding
+    of the abstract state, and only the newest `keep` steps remain."""
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from rwkvtts_tpu.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh(dp=2)
+    sh = NamedSharding(mesh, P("dp"))
+    state = {
+        "w": jax.device_put(
+            jnp.arange(8, dtype=jnp.float32).reshape(4, 2) / 3, sh),
+        "b": jnp.linspace(-1, 1, 5).astype(jnp.bfloat16),
+        "step": jnp.int32(7),
+    }
+    for step in (1, 2, 3):
+        ckpt_lib.save(str(tmp_path), step, state, meta={"epoch": step}, keep=2)
+    assert sorted(os.listdir(tmp_path)) == ["step_2", "step_3"]
+    assert ckpt_lib.latest_step(str(tmp_path)) == 3
+    like = jax.tree.map(jnp.zeros_like, state)
+    like["w"] = jax.device_put(like["w"], sh)
+    got, meta = ckpt_lib.restore(str(tmp_path), like)
+    assert meta == {"epoch": 3}
+    for k in state:
+        assert got[k].dtype == state[k].dtype
+        np.testing.assert_array_equal(
+            np.asarray(got[k], np.float32), np.asarray(state[k], np.float32)
+        )
+    assert got["w"].sharding == sh
+    with pytest.raises(ValueError, match="shape"):
+        ckpt_lib.restore(str(tmp_path), {**like, "b": jnp.zeros(4, jnp.bfloat16)})

@@ -108,3 +108,34 @@ def test_run_sharded_single(tmp_path):
     total = extract.run_sharded(shards, worker, str(tmp_path / "out"))
     assert total == 2
     assert len(os.listdir(tmp_path / "out")) == 2
+
+
+@pytest.mark.parametrize(
+    "num_workers,gpus,want",
+    [
+        (4, [], [None] * 4),  # CPU host: the count stands
+        (4, ["0", "1"], ["0", "1"]),  # never more workers than cards
+        (2, ["0", "1", "2", "3"], ["0", "1"]),  # one card each
+        (0, ["3"], ["3"]),
+    ],
+)
+def test_assign_workers_one_card_each(num_workers, gpus, want):
+    assert extract.assign_workers(num_workers, gpus) == want
+
+
+def test_visible_gpus_from_env(monkeypatch):
+    monkeypatch.setenv("JAX_PLATFORMS", "cuda")
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "2, 5")
+    assert extract.visible_gpus() == ["2", "5"]
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    assert extract.visible_gpus() == []
+
+
+def test_pin_worker_card_sets_cuda_visible_devices(monkeypatch):
+    import queue
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    q = queue.Queue()
+    q.put("3")
+    extract._pin_worker_card(q)
+    assert os.environ["CUDA_VISIBLE_DEVICES"] == "3"
